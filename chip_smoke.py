@@ -6,13 +6,27 @@
 What it does, in order (any failure exits non-zero; there is no CPU path):
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. builds the three CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+   ``nvcc`` each, all at once;
 3. holds each kernel against its plain PyTorch version on the card, exact
    equality, at the full-width shapes of the ``knn-index-usa`` configuration
    (2^24-vertex tables, level batch 131072, tau 32, k 20), and times both;
    then once more at the shapes the flushes below give them (hundreds of
-   source columns, hundreds of candidates or neighbours per row);
-4. drives the main path through the public entry points at a real road-network
+   source columns, hundreds of candidates or neighbours per row); ``minplus``
+   at 4096^3, at a shape whose edges are not multiples of its tile, with
+   +inf rows and columns and one NaN, and in float16 / bfloat16;
+4. ``certify``: the BN-Graph certificate of a 141 x 141 road network
+   (n = 19,881, the largest grid under ``knn_build``'s n <= 20,000 gate)
+   with the ``minplus`` kernel, its launch count set to 0 just before and
+   read just after; the kernel's square against the plain version's on 512
+   sampled rows, ``certificate(..., use_kernel=False)`` giving the same dict,
+   and a corrupted edge weight failing the relaxation check;
+5. ``cli``: the command-line entry points in subprocesses at grid 141:
+   ``knn_build --verify --out`` (tables verified, BN-Graph certified with the
+   kernel), ``serve --artifact`` under random traffic with one injected flush
+   failure, and ``serve --workload fleet`` (200 vehicles, 1% of vertices,
+   all moving every tick);
+6. drives the main path through the public entry points at a real road-network
    size: ``road_network`` -> ``build_bngraph`` -> ``knn.build_engine`` ->
    ``query_batch`` -> three ``flush_updates`` of mixed insert/delete/move
    traffic, checking the tables against a plain-version build, a Dijkstra
@@ -20,8 +34,12 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    the kernels' launch counts set to 0 just before and read just after. A
    twin engine that runs only the plain versions takes the same traffic, and
    after every flush the two engines' tables must be equal bit for bit;
-5. prints one ``{"kernels": [...]}`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+7. ``durability`` on the main path's engine: ``save`` -> ``load_engine``
+   (tables equal), a journaled flush, a second batch killed mid-repair,
+   recovery from the artifact plus the journal, held equal to an uncrashed
+   engine loaded from the same artifact that took the same ops;
+8. prints one ``{"kernels": [...]}`` line (each entry says which phase its
+   launch count covers) and, last, ``{"ok": true, "device": {...}}``.
 
 Bounds: ``bound_ms`` is the larger of (bytes the function must move: every
 input byte it needs once, every output byte once) / 3.35 TB/s and (operations)
@@ -33,6 +51,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -55,6 +74,13 @@ MAIN_GRID_REASON = (
     "384 not 512: with the host-side build_bngraph at 602 s the whole script took 667 s "
     "at 512 on the H100 machine, over half of its 1200 s limit; 263-344 s at 384"
 )
+# Road-network side of the certificate and CLI phases: the largest grid whose
+# n (19,881) passes knn_build's dense-certificate gate n <= 20,000.
+CERT_GRID = 141
+# side of the square minplus product the kernel check times
+MINPLUS_SIDE = 4096
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
 
 
 def say(obj) -> None:
@@ -97,6 +123,13 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def same_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-for-bit equality that counts NaN as equal to NaN (torch.equal
+    does not): the same NaN positions, and equal values everywhere else."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a.masked_fill(na, 0), b.masked_fill(nb, 0))
 
 
 # ----------------------------------------------------------------------
@@ -309,6 +342,185 @@ def check_frontier_relax(cfg, dev, results) -> None:
     }
 
 
+def minplus_bound(m: int, kd: int, n: int) -> tuple[float, str]:
+    """Each input read once, the output written once; one add and one min per
+    (i, t, j) term."""
+    return bound((m * kd + kd * n + m * n) * 4, 2.0 * m * kd * n)
+
+
+def check_minplus(cfg, dev, results) -> None:
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def case(m, kd, n, inf_frac=0.3):
+        """Adjacency-like operands: small integer weights (ties abound, sums
+        exact), a share of +inf entries."""
+        a = torch.randint(0, 64, (m, kd), generator=gen, device=dev).to(torch.float32)
+        b = torch.randint(0, 64, (kd, n), generator=gen, device=dev).to(torch.float32)
+        a[torch.rand((m, kd), generator=gen, device=dev) < inf_frac] = float("inf")
+        b[torch.rand((kd, n), generator=gen, device=dev) < inf_frac] = float("inf")
+        return a, b
+
+    # edges that are not multiples of the 128 x 128 tile or the 8-deep stage
+    a, b = case(1000, 1537, 3001)
+    require(torch.equal(ops.minplus_matmul(a, b), ref.minplus_matmul_ref(a, b)),
+            "minplus differs from its plain version at (1000, 1537, 3001)")
+    # +inf rows and columns, and one NaN that must spread along its row
+    a, b = case(777, 513, 1029)
+    a[5] = float("inf")
+    b[:, 7] = float("inf")
+    a[10, 20] = float("nan")
+    got, want = ops.minplus_matmul(a, b), ref.minplus_matmul_ref(a, b)
+    require(same_nan(got, want), "minplus differs from its plain version with +inf and NaN")
+    require(bool(torch.isnan(got[10]).all()) and int(torch.isnan(got).sum()) == got.shape[1],
+            "minplus did not propagate the NaN along exactly its row")
+    col7 = torch.cat([got[:10, 7], got[11:, 7]])  # row 10 is NaN throughout
+    require(bool(torch.isinf(got[5]).all()) and bool(torch.isinf(col7).all()),
+            "minplus: an all-+inf row or column came out finite")
+    # narrow types: widened to float32 and narrowed back, as the plain version
+    for dt in (torch.float16, torch.bfloat16):
+        h, hb = (x.to(dt) for x in case(300, 257, 700))
+        got = ops.minplus_matmul(h, hb)
+        require(got.dtype == dt and torch.equal(got, ref.minplus_matmul_ref(h, hb)),
+                f"minplus differs from its plain version in {dt}")
+    # the 4096^3 case, timed
+    m = kd = n = MINPLUS_SIDE
+    a, b = case(m, kd, n)
+    got, want = ops.minplus_matmul(a, b), ref.minplus_matmul_ref(a, b)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "minplus differs from its plain version at 4096^3")
+    err = max_abs_err(got, want)
+    del got, want
+    ms = cuda_ms(lambda: ops.minplus_matmul(a, b))
+    plain_ms = cuda_ms(lambda: ref.minplus_matmul_ref(a, b), reps=3)
+    bms, by = minplus_bound(m, kd, n)
+    results["minplus"] = {
+        "shape": {"M": m, "K": kd, "N": n}, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+    }
+
+
+# ----------------------------------------------------------------------
+# phase: the BN-Graph certificate at grid 141 (minplus on its path)
+# ----------------------------------------------------------------------
+
+
+def certify(grid: int, dev, results) -> dict:
+    from repro_torch import knn
+    from repro_torch.core import verify
+    from repro_torch.kernels import ops, ref
+
+    out: dict = {"phase": "certify", "grid": grid}
+    g = knn.road_network(grid, grid, seed=0)
+    t0 = time.perf_counter()
+    bn = knn.build_bngraph(g)
+    out.update(n=bn.n, bngraph_s=time.perf_counter() - t0)
+    require(bn.n <= 20000, f"grid {grid} is past knn_build's certificate gate n <= 20000")
+
+    ops.reset_launches()  # ---- the certificate's launches are counted from here ----
+    t0 = time.perf_counter()
+    cert = verify.certificate(bn)
+    torch.cuda.synchronize()
+    out["certificate_s"] = time.perf_counter() - t0
+    out["launches"] = ops.launches()  # ---- read right after it ----
+    out["certificate"] = cert
+    require(cert["ok"], f"BN-Graph certificate failed: {cert}")
+    require(out["launches"]["minplus"] > 0, "the certificate launched no minplus kernel")
+
+    # its parts, timed one by one: host adjacency, the kernel, host rank check
+    t0 = time.perf_counter()
+    a_h = verify.bngraph_dense_adjacency(bn)
+    out["dense_adjacency_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    require(verify.rank_consistent(bn), "rank check failed")
+    out["rank_check_s"] = time.perf_counter() - t0
+    a = torch.from_numpy(a_h).to(dev)
+    del a_h
+    n = bn.n
+    ms = cuda_ms(lambda: ops.minplus_matmul(a, a), reps=3)
+    sq = ops.minplus_matmul(a, a)
+    # the plain version on 512 sampled rows (the whole square takes it ~40 s
+    # on an H100 80GB HBM3 at 700 W, and the plain-version certificate below
+    # computes that once anyway)
+    rows = torch.from_numpy(np.random.default_rng(3).choice(n, 512, replace=False)).to(dev)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    plain_rows = ref.minplus_matmul_ref(a[rows], a)
+    e1.record()
+    torch.cuda.synchronize()
+    require(torch.equal(sq[rows], plain_rows),
+            "certificate square differs from the plain version on 512 sampled rows")
+    out.update(sampled_rows_equal=512, sampled_rows_max_abs_err=max_abs_err(sq[rows], plain_rows),
+               sampled_rows_plain_ms=e0.elapsed_time(e1))
+    del sq, a, rows, plain_rows
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cert_plain = verify.certificate(bn, use_kernel=False)
+    torch.cuda.synchronize()
+    out["certificate_plain_s"] = time.perf_counter() - t0
+    require(cert_plain == cert, f"plain-version certificate differs: {cert_plain} vs {cert}")
+
+    # one edge weight corrupted upward: a shorter two-hop path now exists
+    for v in range(bn.n):
+        sel = bn.lo_ids[v] >= 0
+        if sel.sum() >= 2:
+            bn.lo_w[v][np.argmax(sel)] += 100.0
+            break
+    stable = verify.relaxation_stable(bn)
+    require(not stable, "relaxation check passed a corrupted BN-Graph")
+    out["corrupted_relaxation_stable"] = stable
+    torch.cuda.empty_cache()
+
+    bms, by = minplus_bound(n, n, n)
+    out["kernel"] = {"shape": {"M": n, "K": n, "N": n}, "ms": ms, "bound_ms": bms, "bound_by": by}
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase: the command-line entry points, in subprocesses
+# ----------------------------------------------------------------------
+
+
+def run_cli(module: str, args: list[str], timeout: float) -> dict:
+    """Run ``python -m module args`` from the checkout; its stdout is one JSON
+    object. A non-zero exit fails the phase."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], capture_output=True, text=True,
+                          cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC), timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} {' '.join(args)} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    result = json.loads(proc.stdout)
+    say({"phase": "cli", "command": f"python -m {module} {' '.join(args)}",
+         "seconds": time.perf_counter() - t0, "result": result})
+    return result
+
+
+def cli(grid: int, tmp: str) -> None:
+    art = os.path.join(tmp, f"g{grid}.npz")
+    common = ["--grid", str(grid), "--k", "20"]
+    built = run_cli("repro_torch.launch.knn_build", [*common, "--verify", "--out", art], 300)
+    require(built["verified"] is True, "knn_build --verify: tables differ from the reference")
+    require(built["bngraph_certificate"]["ok"] is True,
+            f"knn_build --verify: certificate failed {built['bngraph_certificate']}")
+    served = run_cli("repro_torch.launch.serve",
+                     ["--arch", "knn-index", *common, "--artifact", art, "--ops", "200000",
+                      "--update-frac", "0.05", "--inject-flush-failure", "2"], 300)
+    require(served["errors"] == 1 and "injected flush failure" in served["last_error"],
+            f"serve: expected exactly the injected flush failure, got {served['errors']} "
+            f"({served['last_error']})")
+    require(served["updates"] > 0 and served["queries"] > 0, "serve: no traffic served")
+    require(served["engine"]["staged_queue_depth"] == 0, "serve: updates left staged")
+    fleet = run_cli("repro_torch.launch.serve",
+                    ["--arch", "knn-index", *common, "--workload", "fleet",
+                     "--fleet-size", "200", "--ticks", "20"], 300)
+    require(fleet["ticks"] == 20 and fleet["engine"]["flushes"] == 20,
+            f"serve --workload fleet: {fleet['ticks']} ticks, {fleet['engine']['flushes']} flushes")
+    require(fleet["sim"]["moves_total"] > 0, "serve --workload fleet: nothing moved")
+
+
 # ----------------------------------------------------------------------
 # phase: the main path
 # ----------------------------------------------------------------------
@@ -361,7 +573,7 @@ def stage_traffic(knn, engine, mset: set, rng, n_random: int, n_deletes: int, n_
     return staged
 
 
-def main_path(grid: int, k: int, dev) -> dict:
+def main_path(grid: int, k: int, dev) -> tuple[dict, dict]:
     from repro_torch import knn
     from repro_torch.core.construct import build_knn_tables, prepare_sweep
     from repro_torch.core.index import index_from_lists, KNNIndex
@@ -494,8 +706,76 @@ def main_path(grid: int, k: int, dev) -> dict:
             "epoch-pinned query changed across flushes")
     now_ids, _ = engine.query_batch(pin_us)
     require(not torch.equal(now_ids, pin_ids), "flushes changed nothing the pinned queries see")
-    require(all(v > 0 for v in out["launches"].values()),
+    path_kernels = ("topk_merge", "sweep_merge", "frontier_relax")
+    require(all(out["launches"][name] > 0 for name in path_kernels),
             f"a kernel was not launched on the main path: {out['launches']}")
+    return out, {"bn": bn, "engine": engine, "mset": mset}
+
+
+# ----------------------------------------------------------------------
+# phase: durability on the main path's engine
+# ----------------------------------------------------------------------
+
+
+class SimulatedKill(Exception):
+    """Raised by the checkpoint hook to model the process dying there."""
+
+
+def durability(state: dict, tmp: str) -> dict:
+    """save -> load (tables equal); a journaled flush, then a second batch
+    killed mid-repair; recovery from the artifact plus the journal, held
+    equal to an uncrashed engine loaded from the same artifact that took the
+    same ops at the same flush boundaries."""
+    from repro_torch import knn
+
+    engine, bn, mset = state["engine"], state["bn"], state["mset"]
+    out: dict = {"phase": "durability", "n": engine.n, "k": engine.k}
+    art, wal = os.path.join(tmp, "main.npz"), os.path.join(tmp, "wal.bin")
+    t0 = time.perf_counter()
+    engine.save(art)
+    out.update(save_s=time.perf_counter() - t0, artifact_bytes=os.path.getsize(art))
+    t0 = time.perf_counter()
+    twin = knn.load_engine(art, bn=bn)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    require(torch.equal(twin.tables[0], engine.tables[0])
+            and torch.equal(twin.tables[1], engine.tables[1]), "loaded tables differ from saved")
+
+    journal = engine.attach_journal(wal)
+    both = Both(engine, twin)
+    rng = np.random.default_rng(21)
+    out["staged_committed"] = stage_traffic(knn, both, mset, rng, 300, 180, 180)
+    engine.flush_updates()
+    twin.flush_updates()
+    out["staged_killed"] = stage_traffic(knn, both, mset, rng, 300, 180, 180)
+    out["journal_bytes"] = os.path.getsize(wal)
+
+    def kill(e, phase):
+        if phase == "mid-repair-round":
+            raise SimulatedKill(phase)
+
+    engine.checkpoint_hook = kill
+    killed = False
+    try:
+        engine.flush_updates()
+    except SimulatedKill:
+        killed = True
+    engine.checkpoint_hook = None
+    journal.close()
+    require(killed, "the second flush ran no repair round to kill")
+    twin.flush_updates()
+
+    t0 = time.perf_counter()
+    with knn.UpdateJournal(wal) as wal_j:
+        rec = knn.load_engine(art, bn=bn, journal=wal_j)
+        torch.cuda.synchronize()
+        out["recover_s"] = time.perf_counter() - t0
+    require(rec.epoch == twin.epoch == 2, f"epochs: recovered {rec.epoch}, uncrashed {twin.epoch}")
+    require(np.array_equal(rec.objects, twin.objects), "recovered object set differs")
+    require(torch.equal(rec.tables[0], twin.tables[0])
+            and torch.equal(rec.tables[1], twin.tables[1]),
+            "recovered tables differ from the uncrashed engine's")
+    out["recovered_epoch"] = rec.epoch
     return out
 
 
@@ -531,26 +811,44 @@ def main() -> int:
 
     cfg = make_config()
     results: dict = {}
-    for check in (check_topk_merge, check_sweep_merge, check_frontier_relax):
+    for check in (check_topk_merge, check_sweep_merge, check_frontier_relax, check_minplus):
         check(cfg, dev, results)
         torch.cuda.empty_cache()
         name = check.__name__[len("check_"):]
         say({"phase": "kernel_check", "kernel": name, "config": cfg.name, **results[name]})
 
-    out = main_path(args.grid, cfg.k, dev)
+    tmp = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    cert = certify(CERT_GRID, dev, results)
+    say(cert)
+    cli(CERT_GRID, tmp)
+    out, state = main_path(args.grid, cfg.k, dev)
     say(out)
+    say(durability(state, tmp))
+    del state
+    shutil.rmtree(tmp)
     say({"phase": "total", "seconds": time.perf_counter() - t_start})
 
+    # which run each kernel's launch count covers: the main path runs K1-K3,
+    # the certificate runs minplus. The numbers beside each count are its
+    # kernel check's (minplus at 4096^3; its time at the certificate's own
+    # shape is on the certify line)
     replaces = {
         "topk_merge": "src/repro/kernels/topk_merge.py:59",
         "sweep_merge": "src/repro/kernels/sweep_merge.py:112",
         "frontier_relax": "src/repro/kernels/frontier_relax.py:70",
+        "minplus": "src/repro/kernels/minplus.py:39",
     }
+    counted = {name: ("main_path", out["launches"][name], results[name])
+               for name in ("topk_merge", "sweep_merge", "frontier_relax")}
+    counted["minplus"] = ("certify", cert["launches"]["minplus"], results["minplus"])
     say({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-         "replaces": replaces[name], "launches": out["launches"][name],
-         **{key: results[name][key] for key in
+         "replaces": replaces[name], "launches": counted[name][1],
+         "launches_phase": counted[name][0],
+         **{key: counted[name][2][key] for key in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for name in _build.KERNELS
     ]})

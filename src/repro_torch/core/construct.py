@@ -56,6 +56,13 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def _t_bucket(t_true: int, cap: int) -> int:
     """Power-of-4 neighbour-width bucket (lo 4), capped at the global width."""
     p = 4

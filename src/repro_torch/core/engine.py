@@ -57,10 +57,23 @@ E) bounds device memory at E published table versions plus one working copy
 during a flush, and lets callers pin an older epoch:
 ``query_batch(..., epoch=e)``.
 
+Durability: ``attach_journal`` / ``load(..., journal=...)`` pair the engine
+with a write-ahead ``repro_torch.core.journal.UpdateJournal``: staged ops are
+fsync'd before the stage call returns, a flush appends an epoch marker after
+its swap, and ``load`` replays the journal through the staged path (flushing
+at each commit marker, then rolling any uncommitted tail forward as one final
+flush), so a killed process recovers to identical tables. ``save`` writes the
+npz artifact (format version 3, a content checksum over ids, dists and
+objects) that the JAX package writes too, and ``load_artifact`` raises a
+typed ``ArtifactError`` on a truncated file, a checksum mismatch or a newer
+format version; an artifact or a journal written by either package loads in
+the other.
+
 Fault injection: ``EngineCore._checkpoint(phase)`` is the chaos seam, a no-op
-unless ``engine.checkpoint_hook`` is set. It fires at ``"mid-repair-round"``
+unless ``engine.checkpoint_hook`` is set. It fires at
+``"post-journal-append"`` (a staged op just hit disk), ``"mid-repair-round"``
 (after each Jacobi repair round), ``"pre-swap"`` (epoch ``e+1`` built, not yet
-published) and ``"post-swap"`` (published).
+published) and ``"post-swap"`` (published and journal-committed).
 
 Host/device traffic per flush: the update script and affected-row indices go
 up; a changed-row mask per frontier/repair round (which narrows the next
@@ -69,12 +82,15 @@ distance tiles come back. The k-th-distance column, the checkIns pruning
 bound, never leaves the device. Queries move only the query ids up and the
 (B, k) result tiles stay on the device until the caller reads them.
 
-Not in this module yet: the write-ahead journal, ``save``/``load`` artifacts
-and the sanitizer rail of the JAX package's engine.
+The JAX package's sanitizer rail has no counterpart here.
 """
 from __future__ import annotations
 
+import json
+import os
 import time
+import zipfile
+import zlib
 from collections import OrderedDict
 from typing import Iterator
 
@@ -84,17 +100,30 @@ import torch
 from repro_torch.core.bngraph import BNGraph
 from repro_torch.core.construct import build_knn_tables, resolve_device, tables_to_index
 from repro_torch.core.errors import (
+    ArtifactError,
     EngineConfigError,
     EpochError,
     QueryError,
     StagedUpdateError,
 )
 from repro_torch.core.index import PAD_ID, KNNIndex
+from repro_torch.core.journal import UpdateJournal
 from repro_torch.core.updates import insert_affected_set
 from repro_torch.kernels import ops
 
+_FORMAT = "repro-knn-index"
+# v2 added shard meta; v3 adds the content checksum. Load accepts v1/v2
+# artifacts unchanged (no checksum to verify) and refuses versions > 3.
+_FORMAT_VERSION = 3
 _MAX_REPAIR_ROUNDS = 256
 _INF = float("inf")
+
+
+def _tables_checksum(ids: np.ndarray, dists: np.ndarray, objects: np.ndarray) -> int:
+    """Content checksum over the logical artifact payload (order matters)."""
+    crc = zlib.crc32(np.ascontiguousarray(ids).tobytes())
+    crc = zlib.crc32(np.ascontiguousarray(dists).tobytes(), crc)
+    return zlib.crc32(np.ascontiguousarray(objects).tobytes(), crc)
 
 
 class EpochStore:
@@ -235,6 +264,7 @@ class EngineCore:
         # epoch 0 is the constructor tables; every flush publishes the next
         # epoch and queries resolve their snapshot at dispatch
         self.checkpoint_hook = None  # chaos seam: fn(engine, phase) or None
+        self._journal: UpdateJournal | None = None
         self._epochs = EpochStore(keep=2)
         self._epoch_stats: dict[int, dict] = {}
         self._publish_epoch(0)
@@ -305,11 +335,79 @@ class EngineCore:
 
         A test installs a hook that raises (simulated kill-at-this-point) or
         sends queries (snapshot-isolation probes). Phases fired:
-        ``mid-repair-round``, ``pre-swap``, ``post-swap``.
+        ``post-journal-append``, ``mid-repair-round``, ``pre-swap``,
+        ``post-swap``.
         """
         hook = self.checkpoint_hook
         if hook is not None:
             hook(self, phase)
+
+    def attach_journal(self, journal) -> UpdateJournal:
+        """Pair the engine with a write-ahead update journal.
+
+        ``journal`` is an ``UpdateJournal`` or a path (opened/created). Any
+        records already in the journal are first replayed through the staged
+        path: flush at each commit marker, reproducing the original flush
+        boundaries, so the tables
+        land identical to the uncrashed engine's; then any uncommitted tail
+        is staged and rolled forward as one final flush (which appends its
+        own commit marker, making recovery idempotent). From then on every
+        ``stage_*`` call appends + fsyncs its record before acknowledging,
+        every flush commits an epoch marker, and ``save`` truncates the
+        journal once the artifact embodies it.
+        """
+        if self._journal is not None:
+            raise ArtifactError("engine already has a journal attached")
+        if self._staged:
+            raise ArtifactError(
+                "attach_journal before staging updates: the "
+                f"{len(self._staged)} already-staged ops predate the journal "
+                "and would not be durable"
+            )
+        if isinstance(journal, (str, os.PathLike)):
+            journal = UpdateJournal(journal)
+        self._replay_journal(journal)
+        self._journal = journal
+        return journal
+
+    def _replay_journal(self, journal: UpdateJournal) -> None:
+        """Roll the journal forward through the staged path (see
+        ``attach_journal``). Journaling is off while the committed segments
+        replay (their records are already on disk) and on for the tail's
+        roll-forward flush, so that its commit marker is appended."""
+        records = journal.replay()
+        tail = False
+        for rec in records:
+            if rec[0] == "commit":
+                self.flush_updates()
+                self._epoch_stats[self.epoch]["origin"] = "recovery"
+                tail = False
+            elif rec[0] == "ins":
+                self.stage_insert(rec[1])
+                tail = True
+            elif rec[0] == "del":
+                self.stage_delete(rec[1])
+                tail = True
+            else:  # ("mov", u, v)
+                self.stage_move(rec[1], rec[2])
+                tail = True
+        if tail:
+            self._journal = journal  # the tail flush commits its marker
+            try:
+                self.flush_updates()
+                self._epoch_stats[self.epoch]["origin"] = "recovery"
+            finally:
+                self._journal = None
+
+    def _journal_op(self, op: tuple) -> None:
+        """Write-ahead discipline: the record is on disk (fsync'd) before the
+        stage call acknowledges. A kill right after this point is the
+        ``post-journal-append`` chaos site: the op replays on reload even
+        though the caller never saw the acknowledgement (the fsync completed,
+        so applying it is the correct recovery)."""
+        if self._journal is not None:
+            self._journal.append_op(op)
+            self._checkpoint("post-journal-append")
 
     @staticmethod
     def normalize_tables(ids, dists, k: int, bn: BNGraph | None, device):
@@ -407,6 +505,7 @@ class EngineCore:
         u = self._check_vertex(u)
         if u in self._pending:
             raise StagedUpdateError(f"object {u} already present (or staged for insert)")
+        self._journal_op(("ins", u))
         self._pending.add(u)
         self._staged.append(("ins", u))
         return len(self._staged)
@@ -416,6 +515,7 @@ class EngineCore:
         u = self._check_vertex(u)
         if u not in self._pending:
             raise StagedUpdateError(f"object {u} absent (or staged for delete)")
+        self._journal_op(("del", u))
         self._pending.discard(u)
         self._staged.append(("del", u))
         return len(self._staged)
@@ -436,6 +536,7 @@ class EngineCore:
             raise StagedUpdateError(f"object {u} absent (or staged for delete)")
         if v in self._pending:
             raise StagedUpdateError(f"object {v} already present (or staged for insert)")
+        self._journal_op(("mov", u, v))
         self._pending.discard(u)
         self._pending.add(v)
         self._staged.append(("mov", u, v))
@@ -796,11 +897,13 @@ class EngineCore:
             self._stats["flushes_failed"] += 1
             raise
 
-        # -- atomic swap: publish epoch e+1 --
+        # -- atomic swap: publish epoch e+1, commit the journal segment --
         self._objects = set(self._pending)
         self._staged.clear()
         new_epoch = self.epoch + 1
         self._publish_epoch(new_epoch)
+        if self._journal is not None:
+            self._journal.commit(new_epoch)
         self._stats["flushes"] += 1
         self._stats["inserts_applied"] += n_pure_ins
         self._stats["deletes_applied"] += n_pure_del
@@ -833,8 +936,52 @@ class EngineCore:
         return result
 
     # ------------------------------------------------------------------
-    # stats
+    # persistence / stats
     # ------------------------------------------------------------------
+
+    def save(self, path) -> None:
+        """Write the index artifact: one npz shared by build and serving.
+
+        Saving with a non-empty staged queue raises ``ArtifactError`` (rather
+        than silently flushing): staged updates are invisible to queries, so
+        an implicit flush would make the saved artifact disagree with what
+        the engine was serving at save time. Call ``flush_updates()`` first;
+        the tables are then exactly the flushed state and round-trip
+        bit-identically through ``load``.
+
+        The stored tables are the logical (n, k) layout in vertex order (the
+        dummy row stripped), int32 ids and float32 distances, with the sorted
+        int32 object set and a meta record carrying the format version and a
+        content checksum over (ids, dists, objects) that ``load_artifact``
+        verifies. The keys, types and meta are the JAX package's.
+
+        If a journal is attached it is truncated AFTER the artifact is
+        written: the artifact now embodies every committed record (the staged
+        queue is empty here), so the journal restarts empty.
+        """
+        if self._staged:
+            raise ArtifactError("flush_updates() before save(): staged updates pending")
+        ids, dists = self._host_tables()
+        objects = self.objects
+        meta = {
+            "format": _FORMAT,
+            "version": _FORMAT_VERSION,
+            "n": self.n,
+            "k": self.k,
+            "epoch": self.epoch,
+            "checksum": _tables_checksum(ids, dists, objects),
+            "shards": 1,
+        }
+        np.savez_compressed(
+            path,
+            ids=ids,
+            dists=dists,
+            k=np.int64(self.k),
+            objects=objects,
+            meta=np.bytes_(json.dumps(meta).encode()),
+        )
+        if self._journal is not None:
+            self._journal.truncate()
 
     def stats(self) -> dict:
         """Serving counters."""
@@ -850,6 +997,48 @@ class EngineCore:
             "epoch_table_bytes": len(retained) * self._table_bytes(),
             **self._stats,
         }
+
+
+def load_artifact(path) -> tuple[np.ndarray, np.ndarray, int, np.ndarray, dict]:
+    """Read a ``save`` / ``knn_build --out`` npz: (ids, dists, k, objects, meta).
+
+    Accepts the pre-engine ``knn_build`` npz too (no object set stored): M is
+    recovered as the distance-0 entries, since every object is its own 0-th
+    nearest neighbour, so exactly the objects appear at distance 0.
+
+    Raises ``ArtifactError`` on a truncated or otherwise unreadable npz, on a
+    schema version newer than this code (refusing beats misreading fields
+    that did not exist yet) and on a content checksum that no longer matches
+    the stored tables. v1/v2 artifacts carry no checksum and load unverified.
+    """
+    try:
+        with np.load(path) as z:
+            ids = z["ids"]
+            dists = z["dists"]
+            k = int(z["k"])
+            if "objects" in z.files:
+                objects = z["objects"]
+            else:
+                objects = np.unique(ids[dists == 0.0])
+                objects = objects[objects >= 0]
+            meta = json.loads(bytes(z["meta"])) if "meta" in z.files else {}
+    except (OSError, ValueError, EOFError, KeyError, zlib.error, zipfile.BadZipFile) as e:
+        raise ArtifactError(f"{path}: truncated or corrupt artifact ({e})") from e
+    version = int(meta.get("version", 1))
+    if version > _FORMAT_VERSION:
+        raise ArtifactError(
+            f"{path}: artifact schema version {version} is newer than this "
+            f"code understands (max {_FORMAT_VERSION}); refusing to guess"
+        )
+    if "checksum" in meta:
+        got = _tables_checksum(ids, dists, objects)
+        if got != int(meta["checksum"]):
+            raise ArtifactError(
+                f"{path}: content checksum mismatch "
+                f"(stored {meta['checksum']}, computed {got}): the file is "
+                f"corrupt; rebuild or restore from a good copy"
+            )
+    return ids, dists, k, objects, meta
 
 
 class QueryEngine(EngineCore):
@@ -909,6 +1098,27 @@ class QueryEngine(EngineCore):
             index.ids, dists, index.k, objects, bn=bn, device=device, use_kernel=use_kernel
         )
 
+    @classmethod
+    def load(
+        cls, path, *, bn: BNGraph | None = None, device="cuda", use_kernel: bool = True,
+        journal=None,
+    ) -> "QueryEngine":
+        """Load a ``save`` / ``knn_build --out`` artifact (either package's).
+        ``bn`` enables updates.
+
+        ``journal`` (path or ``UpdateJournal``) attaches a write-ahead journal
+        and REPLAYS it first: updates journaled after the artifact was saved
+        (committed flushes and the uncommitted tail) are rolled forward
+        through the staged path, recovering exactly the tables a killed
+        process was serving (see ``attach_journal``). Requires ``bn`` when
+        the journal is non-empty.
+        """
+        ids, dists, k, objects, _ = load_artifact(path)
+        eng = cls.from_tables(ids, dists, k, objects, bn=bn, device=device, use_kernel=use_kernel)
+        if journal is not None:
+            eng.attach_journal(journal)
+        return eng
+
     def to_index(self) -> KNNIndex:
         """Read the tables back into the host ``KNNIndex`` view (oracle dtype)."""
         return tables_to_index(self._vk_ids, self._vk_d, self.n, self.k)
@@ -953,6 +1163,9 @@ class QueryEngine(EngineCore):
 
     def _table_kth(self) -> np.ndarray:
         return self._vk_d[: self.n, -1].cpu().numpy().astype(np.float64)
+
+    def _host_tables(self) -> tuple[np.ndarray, np.ndarray]:
+        return self._vk_ids[: self.n].cpu().numpy(), self._vk_d[: self.n].cpu().numpy()
 
     def _purge_merge(self, rows, deletes, cand_ids, cand_d) -> None:
         self._own_tables()

@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("topk_merge", "sweep_merge", "frontier_relax")
+KERNELS = ("topk_merge", "sweep_merge", "frontier_relax", "minplus")
 HEADERS = ("kround.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

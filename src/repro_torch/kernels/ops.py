@@ -1,10 +1,11 @@
 """Public wrappers around the CUDA kernels, and the plain-torch table ops.
 
-Three functions here launch a hand-written kernel (``csrc/*.cu``):
-``topk_merge``, ``sweep_merge`` and ``frontier_relax``. Given CUDA tensors and
-``use_kernel=True`` (the default) a wrapper checks device, dtype, shape and
-contiguity, launches its kernel on the current stream and raises if the launch
-is refused; it never gives way to the plain version. Given CPU tensors it
+Four functions here launch a hand-written kernel (``csrc/*.cu``):
+``topk_merge``, ``sweep_merge``, ``frontier_relax`` and ``minplus_matmul``.
+Given CUDA tensors and ``use_kernel=True`` (the default) a wrapper checks
+device, dtype, shape and contiguity, launches its kernel on the current
+stream and raises if the launch is refused; it never gives way to the plain
+version. Given CPU tensors it
 runs the plain version in ``ref.py``, and only because the tensors lie on the
 CPU. ``use_kernel=False`` asks for the plain version on whatever device the
 tensors are on (the on-card comparison uses that).
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-LAUNCHES = {"topk_merge": 0, "sweep_merge": 0, "frontier_relax": 0}
+LAUNCHES = {"topk_merge": 0, "sweep_merge": 0, "frontier_relax": 0, "minplus": 0}
 
 # what one block may have on an H100 (227 KB of the SM's 256 KB)
 MAX_SMEM_BYTES = 232448
@@ -51,6 +52,7 @@ _SIGNATURES = {
     "knn_topk_merge": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "knn_sweep_merge": ([_P] * 9 + [_I] * 8 + [_P], _I),
     "knn_frontier_relax": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    "knn_minplus": ([_P] * 3 + [_I] * 3 + [_P], _I),
     "knn_topk_merge_smem": ([_I, _I], ctypes.c_longlong),
     "knn_sweep_merge_smem": ([_I, _I, _I], ctypes.c_longlong),
 }
@@ -268,6 +270,45 @@ def frontier_relax(
             )
         _launched("frontier_relax", code)
     return out
+
+
+# ----------------------------------------------------------------------
+# K4 minplus
+# ----------------------------------------------------------------------
+
+
+def minplus_matmul(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
+    """Tropical (min, +) product ``C = A (+,min) B``: (M, K) x (K, N) -> (M, N).
+
+    Math in float32, output in ``a``'s type: float16 / bfloat16 inputs are
+    widened here and the result narrowed back, as the TPU kernel's body did.
+    +inf is inert and NaN propagates.
+
+    CUDA kernel: ``csrc/minplus.cu`` (replaces ``minplus_matmul_pallas``).
+    128 x 128 output tiles, the tile size is the kernel's own: ragged edges
+    read as +inf inside the kernel, so nothing is padded here. Bound by
+    operations: 2*M*K*N (one add and one min per term) on the CUDA cores.
+    """
+    if not (a.is_cuda and use_kernel):
+        return ref.minplus_matmul_ref(a, b)
+    dev = a.device
+    m, kd = a.shape
+    if b.ndim != 2 or b.shape[0] != kd:
+        raise ValueError(
+            f"minplus_matmul: shapes {tuple(a.shape)} and {tuple(b.shape)} do not chain"
+        )
+    n = b.shape[1]
+    af, bf = a.to(torch.float32), b.to(torch.float32)
+    _check("a", af, torch.float32, (m, kd), dev)
+    _check("b", bf, torch.float32, (kd, n), dev)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m and n:
+        with torch.cuda.device(dev):
+            code = _fn("minplus", "knn_minplus")(
+                af.data_ptr(), bf.data_ptr(), out.data_ptr(), m, kd, n, _stream(dev)
+            )
+        _launched("minplus", code)
+    return out.to(a.dtype)
 
 
 # ----------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels (the equality targets).
+"""Plain PyTorch versions of the four kernels (the equality targets).
 
 These run on any device. The CPU tests use them, the wrappers in ``ops.py``
 use them for CPU tensors, and the on-card check compares each CUDA kernel
@@ -12,6 +12,8 @@ import torch
 
 _INT_MAX = torch.iinfo(torch.int32).max
 _INF = float("inf")
+# largest (rows, t, N) temporary minplus_matmul_ref materialises at once
+_MINPLUS_TEMP_BYTES = 1 << 30
 
 
 def kround_merge(cand_ids: torch.Tensor, cand_d: torch.Tensor, k: int):
@@ -106,3 +108,32 @@ def frontier_relax_ref(nbr, rows, w, dist, kth, src):
         cand = w[:, j, None] + nd
         acc = torch.minimum(acc, torch.where(valid[:, None] & gate, cand, _INF))
     return acc
+
+
+def minplus_matmul_ref(a: torch.Tensor, b: torch.Tensor):
+    """Tropical (min, +) product ``C[i, j] = min_t a[i, t] + b[t, j]``.
+
+    Math in float32, output in ``a``'s type; +inf is inert and NaN propagates
+    (``amin`` / ``minimum``), as in the JAX package's ``minplus_matmul_ref``.
+    That one materialises the whole (M, K, N) sum; this one walks row and t
+    chunks so that the (rows, t, N) temporary stays under 1 GiB (the
+    certificate squares a 19,881-wide matrix), and takes the same
+    values: each term is one float32 add and min has no order to differ in.
+    """
+    af = a.to(torch.float32)
+    bf = b.to(torch.float32)
+    m, kd = af.shape
+    if bf.ndim != 2 or bf.shape[0] != kd:
+        raise ValueError(f"minplus: shapes {tuple(a.shape)} and {tuple(b.shape)} do not chain")
+    n = bf.shape[1]
+    out = torch.full((m, n), _INF, dtype=torch.float32, device=af.device)
+    if m and n and kd:
+        t_step = max(1, min(kd, _MINPLUS_TEMP_BYTES // (4 * n)))
+        r_step = max(1, _MINPLUS_TEMP_BYTES // (4 * n * t_step))
+        for t0 in range(0, kd, t_step):
+            bt = bf[t0 : t0 + t_step][None]
+            for r0 in range(0, m, r_step):
+                part = torch.amin(af[r0 : r0 + r_step, t0 : t0 + t_step, None] + bt, dim=1)
+                rows = out[r0 : r0 + r_step]
+                torch.minimum(rows, part, out=rows)
+    return out.to(a.dtype)

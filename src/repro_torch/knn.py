@@ -1,7 +1,7 @@
 """Stable public facade for the kNN road-network system (PyTorch + CUDA).
 
 One import surface for the pipeline this package covers: build, serve,
-maintain.
+maintain, persist.
 
     from repro_torch import knn
 
@@ -13,6 +13,19 @@ maintain.
     engine.stage_insert(u); engine.stage_delete(v)
     engine.stage_move(a, b)                            # moving-objects traffic
     engine.flush_updates()                             # one fused batch repair
+    engine.save("index.npz")
+
+    engine = knn.load_engine("index.npz", bn=knn.build_bngraph(g))
+
+Moving-fleet serving (see ``repro_torch.workloads``): ``FleetSim`` drives
+vehicles along shortest-path trips and each ``sim.tick()`` yields the
+(src, dst) moves to stage; ``flush_updates`` applies them as one fused batch.
+
+Durability: ``load_engine(..., journal="wal.bin")`` attaches a write-ahead
+``UpdateJournal`` and replays any records a killed process left behind
+(crash recovery to identical tables, see ``repro_torch.core.journal``).
+Artifacts and journals are the JAX package's formats: either package reads
+what the other wrote.
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; without a CUDA
 device it raises unless ``device="cpu"`` is passed, which runs the plain
@@ -27,28 +40,36 @@ from repro_torch.core.bngraph import BNGraph, build_bngraph
 from repro_torch.core.construct import build_knn_index, build_knn_tables
 from repro_torch.core.engine import QueryEngine
 from repro_torch.core.errors import (
+    ArtifactError,
     EngineConfigError,
     EpochError,
+    JournalError,
     QueryError,
     RepError,
     StagedUpdateError,
 )
 from repro_torch.core.index import KNNIndex, indices_equivalent
+from repro_torch.core.journal import UpdateJournal
 from repro_torch.core.reference import knn_index_cons_plus
 from repro_torch.core.updates import delete_object, insert_object, move_object
 from repro_torch.graph.csr import Graph
 from repro_torch.graph.generators import pick_objects, road_network
+from repro_torch.workloads.fleet import FleetSim
 
 __all__ = [
+    "ArtifactError",
     "BNGraph",
     "EngineConfigError",
     "EpochError",
+    "FleetSim",
     "Graph",
+    "JournalError",
     "KNNIndex",
     "QueryEngine",
     "QueryError",
     "RepError",
     "StagedUpdateError",
+    "UpdateJournal",
     "build_bngraph",
     "build_engine",
     "build_index",
@@ -58,6 +79,7 @@ __all__ = [
     "indices_equivalent",
     "insert_object",
     "knn_index_cons_plus",
+    "load_engine",
     "move_object",
     "pick_objects",
     "road_network",
@@ -89,6 +111,26 @@ def build_index(
     """Road network (or prebuilt BN-Graph) -> host KNNIndex view."""
     bn = graph if isinstance(graph, BNGraph) else build_bngraph(graph)
     return build_knn_index(bn, objects, k, device=device, use_kernel=use_kernel)
+
+
+def load_engine(
+    path,
+    *,
+    bn: BNGraph | None = None,
+    device="cuda",
+    use_kernel: bool = True,
+    journal=None,
+) -> QueryEngine:
+    """Load a ``QueryEngine.save`` / ``knn_build --out`` artifact (written by
+    either package) into a scalar engine.
+
+    ``journal`` (a path or ``UpdateJournal``) attaches the write-ahead journal
+    and replays whatever a killed process left in it (committed flush
+    segments and the uncommitted tail), recovering the exact tables that
+    process was serving. Requires ``bn`` when the journal is non-empty
+    (replay runs real updates).
+    """
+    return QueryEngine.load(path, bn=bn, device=device, use_kernel=use_kernel, journal=journal)
 
 
 def stage_random_updates(engine: QueryEngine, mset: set, rng=None, count: int = 1) -> int:

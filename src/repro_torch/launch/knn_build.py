@@ -2,12 +2,18 @@
 
   road network -> min-degree order + BN-Graph (host symbolic phase)
                -> level-synchronous device sweeps (bottom-up V_k^<, top-down V_k)
-               -> QueryEngine + stats
+               -> QueryEngine artifact + stats
 
-  PYTHONPATH=src python -m repro_torch.launch.knn_build --grid 256 --k 20 --verify
+  PYTHONPATH=src python -m repro_torch.launch.knn_build --grid 141 --k 20 --verify \
+      --out index.npz
 
 Runs on the GPU by default and fails without one; ``--device cpu`` runs the
-plain PyTorch versions of the kernels instead.
+plain PyTorch versions of the kernels instead. ``--verify`` checks the tables
+against the sequential host reference and, up to n = 20,000, certifies the
+BN-Graph with the ``minplus`` kernel (a dense (n, n) tropical square). The
+``--out`` artifact is ``QueryEngine.save`` format, the same file the JAX
+package writes, so ``serve --artifact`` and ``knn.load_engine`` of either
+package read it.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import time
 
 from repro_torch import knn
 from repro_torch.core.construct import build_knn_tables, prepare_sweep, resolve_device
+from repro_torch.core.verify import certificate
 
 
 def main(argv=None):
@@ -31,6 +38,7 @@ def main(argv=None):
         help="CUDA kernels (default) or, with --no-use-kernel, their plain versions",
     )
     ap.add_argument("--verify", action="store_true", help="check vs host reference")
+    ap.add_argument("--out", default=None, help="write a QueryEngine.save npz")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -77,7 +85,13 @@ def main(argv=None):
     if args.verify:
         ref = knn.knn_index_cons_plus(bn, objects, args.k)
         stats["verified"] = bool(knn.indices_equivalent(ref, idx))
+        if g.n <= 20000:  # dense tropical certificate at verification scale
+            stats["bngraph_certificate"] = certificate(
+                bn, device=device, use_kernel=args.use_kernel
+            )
     print(json.dumps(stats, indent=2))
+    if args.out:
+        engine.save(args.out)
     return stats
 
 

@@ -372,4 +372,6 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.reset_launches()
     ids, d = _topk_case(4, 16, np.float32, 0)
     ops.topk_merge(*_t(ids, d), 3)
-    assert ops.launches() == {"topk_merge": 0, "sweep_merge": 0, "frontier_relax": 0}
+    ops.minplus_matmul(torch.from_numpy(d), torch.from_numpy(d.T.copy()))
+    assert ops.launches() == {"topk_merge": 0, "sweep_merge": 0, "frontier_relax": 0,
+                              "minplus": 0}

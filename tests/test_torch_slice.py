@@ -114,6 +114,8 @@ def test_importing_the_port_imports_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import repro_torch.knn, repro_torch.launch.knn_build, repro_torch.configs.knn_index\n"
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
+        "import repro_torch.launch.serve, repro_torch.core.verify, repro_torch.core.journal\n"
+        "import repro_torch.workloads\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.') or m == 'triton']\n"
         "print(bad)\n"
