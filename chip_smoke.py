@@ -6,7 +6,7 @@
 What it does, in order (any failure exits non-zero; there is no CPU path):
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+2. builds the six CUDA kernels from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` each, all at once;
 3. holds each kernel against its plain PyTorch version on the card, exact
    equality, at the full-width shapes of the ``knn-index-usa`` configuration
@@ -38,17 +38,41 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    (tables equal), a journaled flush, a second batch killed mid-repair,
    recovery from the artifact plus the journal, held equal to an uncrashed
    engine loaded from the same artifact that took the same ops;
-8. prints one ``{"kernels": [...]}`` line (each entry says which phase its
+8. ``check_retrieval_topk``: K5 against its plain version, exact, at the
+   ``retrieval_cand`` shape (1, 10^6, k = 100), at (512, 10^6), at the JAX
+   kernel test's shapes, with heavy ties, -inf rows, N < k, bfloat16 and
+   k = 1024; times it beside ``torch.topk``;
+9. ``recsys``: the full ``xdeepfm`` configuration on the card (1.56 GB of
+   tables from a seeded generator): ``forward`` at the serve_p99 (512) and
+   serve_bulk (262,144) batches, held to a float64 evaluation and to each
+   other; ``retrieval_score`` over 10^6 candidates with K5 (launch count set
+   to 0 just before and read just after), equal to the plain version's; and
+   the retrieval example in a subprocess;
+10. ``check_flash_attention``: K6 against its plain version within stated
+   tolerances, at (1, 32768, 16/2, 128) causal bf16, at the prefill shape
+   (4, 2048, 16/2, 128) causal in bf16 and float32, non-causal with S != T,
+   S not a multiple of the tile and one kv head per query head; times it beside
+   ``scaled_dot_product_attention(enable_gqa=True)``;
+11. ``lm``: ``serve --arch qwen2.5-3b --batch 4 --prompt-len 2048 --gen 32``
+   in a subprocess (full width, full depth, bf16: 36 K6 launches in its
+   prefill, counted by serve.py from 0 just before its timed run), then in
+   process a full-width, two-layer float32 twin whose prefill runs once with
+   K6 and once with the plain attention: logits within 1e-4, and the same
+   greedy tokens over 16 decode steps;
+12. prints one ``{"kernels": [...]}`` line (each entry says which phase its
    launch count covers) and, last, ``{"ok": true, "device": {...}}``.
 
 Bounds: ``bound_ms`` is the larger of (bytes the function must move: every
 input byte it needs once, every output byte once) / 3.35 TB/s and (operations)
-/ 67 TFLOP/s (H100 SXM data-sheet rates, float32 outside the tensor cores),
-computed from this run's inputs (distinct gathered rows, valid neighbour slots).
+/ 67 TFLOP/s (H100 SXM data-sheet rates, float32 outside the tensor cores;
+989 TFLOP/s for the bfloat16 attention, which the tensor cores could do),
+computed from this run's inputs (distinct gathered rows, valid neighbour
+slots, unmasked query-key pairs).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -62,6 +86,14 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
+# K6 against its plain version: |kernel - plain| <= atol + rtol * |plain|.
+# float32: the two sum p*v and p in another order (tiles of 64 against blocks
+# of 1024). bfloat16: the output is rounded to bfloat16 on each side, one ulp
+# of which is 2^-8 relative, and p is rounded before the PV product.
+ATTN_TOL = {torch.float32: (5e-6, 5e-6), torch.bfloat16: (2e-2, 2e-2)}
+# the twin's last-position logits (unit scale), kernel against plain attention
+LOGIT_TOL = 1e-4
 
 # Road-network side of the main path. 512 (n = 262,144, the size of the New
 # York network the paper starts from) is the target, but `build_bngraph` is
@@ -104,9 +136,9 @@ def cuda_ms(fn, reps: int = 5, warm: int = 1) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
+def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = nops / F32_OPS_PER_S * 1e3
+    by_ops = nops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -483,18 +515,24 @@ def certify(grid: int, dev, results) -> dict:
 # ----------------------------------------------------------------------
 
 
-def run_cli(module: str, args: list[str], timeout: float) -> dict:
+def run_cli(module: str, args: list[str], timeout: float, phase: str = "cli") -> dict:
     """Run ``python -m module args`` from the checkout; its stdout is one JSON
-    object. A non-zero exit fails the phase."""
+    object, or lines of text whose last line is one. A non-zero exit fails
+    the phase."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", module, *args], capture_output=True, text=True,
                           cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC), timeout=timeout)
     if proc.returncode != 0:
         raise AssertionError(f"{module} {' '.join(args)} exited {proc.returncode}:\n"
                              f"{proc.stderr[-4000:]}")
-    result = json.loads(proc.stdout)
-    say({"phase": "cli", "command": f"python -m {module} {' '.join(args)}",
-         "seconds": time.perf_counter() - t0, "result": result})
+    printed = []
+    try:
+        result = json.loads(proc.stdout)
+    except json.JSONDecodeError:
+        *printed, last = proc.stdout.strip().splitlines()
+        result = json.loads(last)
+    say({"phase": phase, "command": f"python -m {module} {' '.join(args)}",
+         "seconds": time.perf_counter() - t0, "printed": printed, "result": result})
     return result
 
 
@@ -780,6 +818,272 @@ def durability(state: dict, tmp: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# K5 and the recsys path
+# ----------------------------------------------------------------------
+
+
+def check_retrieval_topk(dev, results) -> None:
+    from repro_torch.configs import xdeepfm
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    n_cand, k = xdeepfm.RETRIEVAL_CANDIDATES, xdeepfm.RETRIEVAL_K
+    neg_inf = float("-inf")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def held(s, kk, what):
+        got, want = ops.retrieval_topk(s, kk), ref.retrieval_topk_ref(s, kk)
+        torch.cuda.synchronize()
+        require(got[0].dtype == torch.int32 and got[1].dtype == s.dtype
+                and tuple(got[0].shape) == (s.shape[0], kk), f"retrieval_topk {what}: bad output")
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"retrieval_topk differs from its plain version {what}")
+        return got, want
+
+    for b, n, kk in ((1, 1024, 5), (8, 10000, 16), (3, 4096, 100)):  # the JAX test's shapes
+        held(randn(b, n), kk, f"at {(b, n, kk)}")
+    held(torch.round(randn(4, n_cand) * 10) / 10, k, "with scores rounded to 0.1")
+    s = randn(4, 300_000)
+    s[0, ::3] = neg_inf
+    s[1] = neg_inf
+    s[2, 50:] = neg_inf  # fewer finite scores than k
+    held(s, k, "with -inf scores")
+    held(randn(3, 50), 64, "at N = 50 < k = 64")
+    held(randn(8, n_cand).to(torch.bfloat16), k, "in bfloat16")
+    held(randn(2, 100_000), 1024, "at k = 1024")
+    s = randn(512, n_cand)
+    held(s, k, "at (512, 10^6)")
+    ms_512 = cuda_ms(lambda: ops.retrieval_topk(s, k))
+    del s
+    # the retrieval_cand shape, timed
+    s = randn(1, n_cand)
+    got, want = held(s, k, "at (1, 10^6)")
+    err = max_abs_err(got[1], want[1])
+    ms = cuda_ms(lambda: ops.retrieval_topk(s, k), reps=20)
+    plain_ms = cuda_ms(lambda: ref.retrieval_topk_ref(s, k))
+    library_ms = cuda_ms(lambda: torch.topk(s, k), reps=20)
+    bms, by = bound(n_cand * 4 + k * 8, n_cand)
+    results["retrieval_topk"] = {
+        "shape": {"B": 1, "N": n_cand, "k": k}, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+        "ms_at_B512": ms_512, "bound_ms_at_B512": bound(512 * (n_cand * 4 + k * 8), 0)[0],
+    }
+
+
+def recsys(dev) -> dict:
+    from repro_torch.configs import xdeepfm
+    from repro_torch.data.pipeline import RecsysStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys as rc
+
+    cfg = xdeepfm.make_config()
+    out: dict = {"phase": "recsys", "config": cfg.name}
+    t0 = time.perf_counter()
+    params = rc.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["table_bytes"] = params["tables"].numel() * params["tables"].element_size()
+
+    def ids_of(b):
+        stream = RecsysStream(n_sparse=cfg.n_sparse, bag=cfg.bag_size, rows=cfg.table_rows,
+                              batch=b, multi_hot_fields=cfg.multi_hot_fields)
+        return {"sparse_ids": torch.from_numpy(stream.batch_at(0)["sparse_ids"]).to(dev)}
+
+    logits = {}
+    for cell, b in (("serve_p99", xdeepfm.SERVE_P99_BATCH),
+                    ("serve_bulk", xdeepfm.SERVE_BULK_BATCH)):
+        batch = ids_of(b)
+        logits[cell] = rc.forward(params, batch, cfg, device=dev)
+        torch.cuda.synchronize()
+        require(tuple(logits[cell].shape) == (b,) and bool(torch.isfinite(logits[cell]).all()),
+                f"xdeepfm forward at B = {b}: bad logits")
+        ms = cuda_ms(lambda: rc.forward(params, batch, cfg, device=dev), reps=3)
+        out[cell] = {"batch": b, "ms": ms, "rows_per_s": b / ms * 1e3}
+    # the bulk batch goes through the CIN in row chunks: its first rows alone
+    # must give the same logits, and those must agree with float64
+    bulk = ids_of(xdeepfm.SERVE_BULK_BATCH)
+    head = {"sparse_ids": bulk["sparse_ids"][:512]}
+    alone = rc.forward(params, head, cfg, device=dev)
+    p64 = {key: ([{kk: t.double() for kk, t in layer.items()} for layer in val]
+                 if key == "mlp" else [t.double() for t in val] if key == "cin"
+                 else val.double()) for key, val in params.items()}
+    exact = rc.forward(p64, head, cfg, device=dev)
+    del p64
+    torch.cuda.empty_cache()
+    err64 = float((alone.double() - exact).abs().max())
+    err_chunks = float((logits["serve_bulk"][:512] - alone).abs().max())
+    out.update(float64_max_abs_err=err64, chunked_max_abs_err=err_chunks,
+               logit_scale=float(exact.abs().max()))
+    require(err64 <= 1e-5 + 1e-4 * out["logit_scale"], f"xdeepfm forward vs float64: {err64}")
+    require(err_chunks <= 1e-5 + 1e-4 * out["logit_scale"],
+            f"xdeepfm forward, bulk rows vs alone: {err_chunks}")
+
+    # retrieval_cand: one query against 10^6 items with K5
+    query = {"sparse_ids": ids_of(1)["sparse_ids"], "n_candidates": xdeepfm.RETRIEVAL_CANDIDATES}
+    k = xdeepfm.RETRIEVAL_K
+    ops.reset_launches()  # ---- the retrieval's launches are counted from here ----
+    got = rc.retrieval_score(params, query, cfg, k=k, device=dev)
+    torch.cuda.synchronize()
+    out["launches"] = ops.launches()  # ---- read right after it ----
+    require(out["launches"]["retrieval_topk"] > 0, "retrieval_score launched no retrieval_topk")
+    want = rc.retrieval_score(params, query, cfg, k=k, device=dev, use_kernel=False)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "retrieval_score with the kernel differs from the plain version")
+    require(bool((got[0] >= 0).all()) and bool((got[1][0, :-1] >= got[1][0, 1:]).all()),
+            "retrieval_score: ids missing or scores out of order")
+    out["retrieval"] = {
+        "N": xdeepfm.RETRIEVAL_CANDIDATES, "k": k, "top_ids": got[0][0, :8].tolist(),
+        "ms": cuda_ms(lambda: rc.retrieval_score(params, query, cfg, k=k, device=dev), reps=10),
+        "plain_ms": cuda_ms(lambda: rc.retrieval_score(params, query, cfg, k=k, device=dev,
+                                                       use_kernel=False)),
+    }
+    del params
+    torch.cuda.empty_cache()
+    ex = run_cli("repro_torch.examples.retrieval_recsys",
+                 ["--candidates", str(xdeepfm.RETRIEVAL_CANDIDATES), "--k", str(k)], 300,
+                 phase="recsys_example")
+    require(ex["agrees"] is True and ex["path"] == "CUDA kernel",
+            f"retrieval example: {ex['path']} agrees {ex['agrees']}")
+    return out
+
+
+# ----------------------------------------------------------------------
+# K6 and the LM path
+# ----------------------------------------------------------------------
+
+
+def attn_pairs(s: int, t: int, causal: bool) -> int:
+    """Unmasked (query, key) pairs: j <= i under the causal mask."""
+    if not causal:
+        return s * t
+    full = min(s, t)  # rows 0..full-1 see i+1 keys, the rest all t
+    return full * (full + 1) // 2 + (s - full) * t
+
+
+def check_flash_attention(dev, results) -> None:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    bf16 = torch.bfloat16
+    checked = []
+
+    def qkv(b, s, t, h, hkv, d, dt):
+        return [torch.randn(shape, generator=gen, device=dev).to(dt)
+                for shape in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d))]
+
+    def held(case, causal, what):
+        got = ops.flash_attention(*case, causal=causal)
+        want = ref.flash_attention_ref(*case, causal=causal)
+        torch.cuda.synchronize()
+        atol, rtol = ATTN_TOL[case[0].dtype]
+        err = max_abs_err(got, want)
+        require(got.dtype == case[0].dtype and got.shape == case[0].shape,
+                f"flash_attention {what}: bad output")
+        require(bool(((got.float() - want.float()).abs()
+                      <= atol + rtol * want.float().abs()).all()),
+                f"flash_attention differs from its plain version {what}: max_abs_err {err}")
+        checked.append({"case": what, "max_abs_err": err, "atol": atol, "rtol": rtol})
+        return err
+
+    case = qkv(1, 32768, 32768, 16, 2, 128, bf16)  # prefill_32k, one sequence
+    held(case, True, "(1, 32768, 16/2, 128) causal bf16")
+    ms_32k = cuda_ms(lambda: ops.flash_attention(*case, causal=True), reps=3)
+    plain_32k = cuda_ms(lambda: ref.flash_attention_ref(*case, causal=True), reps=1)
+    del case
+    held(qkv(4, 2048, 2048, 16, 2, 128, torch.float32), True, "(4, 2048, 16/2, 128) causal f32")
+    held(qkv(2, 700, 1300, 16, 2, 128, torch.float32), False, "(2, 700/1300, 16/2) non-causal f32")
+    held(qkv(2, 1300, 700, 16, 2, 128, bf16), False, "(2, 1300/700, 16/2) non-causal bf16")
+    held(qkv(3, 1000, 1000, 16, 2, 128, bf16), True, "(3, 1000, 16/2) causal bf16")
+    held(qkv(1, 513, 513, 8, 8, 128, torch.float32), True, "(1, 513, 8/8, 128) causal f32")
+    # the prefill's own shape (qwen2.5-3b, batch 4, prompt 2048), timed
+    b, s, h, hkv, d = 4, 2048, 16, 2, 128
+    case = qkv(b, s, s, h, hkv, d, bf16)
+    err = held(case, True, "(4, 2048, 16/2, 128) causal bf16")
+    ms = cuda_ms(lambda: ops.flash_attention(*case, causal=True), reps=10)
+    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(*case, causal=True))
+    qt, kt, vt = (x.transpose(1, 2) for x in case)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+    flops = 4.0 * b * h * d * attn_pairs(s, s, True)
+    nbytes = 2 * (2 * b * s * h * d + 2 * b * s * hkv * d)
+    bms, by = bound(nbytes, flops, BF16_TENSOR_OPS_PER_S)
+    results["flash_attention"] = {
+        "shape": {"B": b, "S": s, "T": s, "H": h, "Hkv": hkv, "D": d, "causal": True,
+                  "dtype": "bfloat16"},
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": library_ms, "tflops": flops / ms / 1e9, "checked": checked,
+        "ms_32k": ms_32k, "plain_ms_32k": plain_32k,
+        "bound_ms_32k": bound(0, 4.0 * 16 * 128 * attn_pairs(32768, 32768, True),
+                              BF16_TENSOR_OPS_PER_S)[0],
+    }
+
+
+def lm(dev) -> dict:
+    from repro_torch.configs import qwen2_5_3b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+
+    out: dict = {"phase": "lm"}
+    served = run_cli("repro_torch.launch.serve",
+                     ["--arch", "qwen2.5-3b", "--batch", "4", "--prompt-len", "2048",
+                      "--gen", "32"], 600, phase="lm_serve")
+    cfg = qwen2_5_3b.make_config()
+    require(served["params"] == cfg.param_count() and served["model"] == cfg.name,
+            f"serve ran {served['model']}, not the full {cfg.name}")
+    require(served["launches"]["flash_attention"] == cfg.n_layers,
+            f"serve's prefill launched flash_attention {served['launches']['flash_attention']} "
+            f"times, not once per layer ({cfg.n_layers})")
+    out["serve"] = {key: served[key] for key in
+                    ("prefill_ms", "decode_ms", "decode_tok_per_s", "launches")}
+
+    # the twin: full width, two layers, float32; prefill with K6 and with the
+    # plain attention, then 16 greedy decode steps from each
+    twin = dataclasses.replace(cfg, name="qwen2.5-3b-2l-f32", n_layers=2,
+                               param_dtype=torch.float32)
+    params = tr.init_params(twin, seed=0, device=dev)
+    prompts = torch.randint(0, twin.vocab, (4, 2048), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    steps = 16
+    ops.reset_launches()  # ---- the twin's launches are counted from here ----
+    l_k, c_k = tr.prefill(params, prompts, twin, 2048 + steps, device=dev)
+    torch.cuda.synchronize()
+    out["twin_launches"] = ops.launches()  # ---- read right after its prefill ----
+    require(out["twin_launches"]["flash_attention"] == twin.n_layers,
+            f"twin prefill: {out['twin_launches']}")
+    l_p, c_p = tr.prefill(params, prompts, twin, 2048 + steps, device=dev, use_kernel=False)
+    err = max_abs_err(l_k, l_p)
+    require(bool(torch.isfinite(l_k).all()) and tuple(l_k.shape) == (4, twin.vocab),
+            "twin prefill: bad logits")
+    require(err <= LOGIT_TOL, f"twin prefill logits, kernel vs plain attention: {err}")
+    # greedy tokens: equal, except that a near-tie (top two plain logits within
+    # the tolerance) may legitimately send one row down another path
+    tok_k, tok_p = torch.argmax(l_k, -1), torch.argmax(l_p, -1)
+    live = torch.ones(4, dtype=torch.bool, device=dev)
+    diverged = []
+    for step in range(steps + 1):
+        top2 = torch.topk(l_p.float(), 2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= LOGIT_TOL
+        differ = live & (tok_k != tok_p)
+        require(bool((tie | ~differ).all()),
+                f"greedy token of step {step} differs without a near-tie")
+        for row in torch.nonzero(differ).flatten().tolist():
+            diverged.append({"row": row, "step": step})
+        live &= ~differ
+        if step == steps:
+            break
+        l_k, c_k = tr.decode_step(params, c_k, tok_k, twin)
+        l_p, c_p = tr.decode_step(params, c_p, tok_p, twin)
+        tok_k, tok_p = torch.argmax(l_k, -1), torch.argmax(l_p, -1)
+    out["twin"] = {"logits_max_abs_err": err, "greedy_steps": steps, "diverged": diverged,
+                   "rows_equal_throughout": int(live.sum())}
+    return out
+
+
+# ----------------------------------------------------------------------
 
 
 def main() -> int:
@@ -816,6 +1120,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         name = check.__name__[len("check_"):]
         say({"phase": "kernel_check", "kernel": name, "config": cfg.name, **results[name]})
+    check_retrieval_topk(dev, results)
+    torch.cuda.empty_cache()
+    say({"phase": "kernel_check", "kernel": "retrieval_topk", "config": "xdeepfm",
+         **results["retrieval_topk"]})
+    check_flash_attention(dev, results)
+    torch.cuda.empty_cache()
+    say({"phase": "kernel_check", "kernel": "flash_attention", "config": "qwen2.5-3b",
+         **results["flash_attention"]})
 
     tmp = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(tmp, ignore_errors=True)
@@ -828,21 +1140,36 @@ def main() -> int:
     say(durability(state, tmp))
     del state
     shutil.rmtree(tmp)
+    torch.cuda.empty_cache()
+    rec = recsys(dev)
+    say(rec)
+    torch.cuda.empty_cache()
+    lm_out = lm(dev)
+    say(lm_out)
     say({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     # which run each kernel's launch count covers: the main path runs K1-K3,
-    # the certificate runs minplus. The numbers beside each count are its
-    # kernel check's (minplus at 4096^3; its time at the certificate's own
-    # shape is on the certify line)
+    # the certificate minplus, the recsys retrieval retrieval_topk, the LM
+    # prefill of serve.py flash_attention (counted by serve.py from 0
+    # just before its timed run). The numbers beside each count are its
+    # kernel check's (minplus at 4096^3, its time at the certificate's own
+    # shape is on the certify line; retrieval_topk at the retrieval cell's
+    # (1, 10^6); flash_attention at the prefill's (4, 2048, 16/2, 128))
     replaces = {
         "topk_merge": "src/repro/kernels/topk_merge.py:59",
         "sweep_merge": "src/repro/kernels/sweep_merge.py:112",
         "frontier_relax": "src/repro/kernels/frontier_relax.py:70",
         "minplus": "src/repro/kernels/minplus.py:39",
+        "retrieval_topk": "src/repro/kernels/retrieval_topk.py:58",
+        "flash_attention": "src/repro/kernels/flash_attention.py:64",
     }
     counted = {name: ("main_path", out["launches"][name], results[name])
                for name in ("topk_merge", "sweep_merge", "frontier_relax")}
     counted["minplus"] = ("certify", cert["launches"]["minplus"], results["minplus"])
+    counted["retrieval_topk"] = ("recsys", rec["launches"]["retrieval_topk"],
+                                 results["retrieval_topk"])
+    counted["flash_attention"] = ("lm", lm_out["serve"]["launches"]["flash_attention"],
+                                  results["flash_attention"])
     say({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",

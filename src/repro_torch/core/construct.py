@@ -40,27 +40,10 @@ import torch
 
 from repro_torch.core.bngraph import BNGraph
 from repro_torch.core.index import KNNIndex
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 _INF = np.float32(np.inf)
-
-
-def resolve_device(device) -> torch.device:
-    """The torch device of an entry point; a CUDA device must be present."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={device!r} but no CUDA device is available; "
-            "pass device='cpu' to run the plain versions on the CPU"
-        )
-    return dev
-
-
-def synchronize(device) -> None:
-    """Wait for the work queued on ``device`` (nothing to wait for on the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def _t_bucket(t_true: int, cap: int) -> int:

@@ -98,7 +98,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.bngraph import BNGraph
-from repro_torch.core.construct import build_knn_tables, resolve_device, tables_to_index
+from repro_torch.core.construct import build_knn_tables, tables_to_index
 from repro_torch.core.errors import (
     ArtifactError,
     EngineConfigError,
@@ -109,6 +109,7 @@ from repro_torch.core.errors import (
 from repro_torch.core.index import PAD_ID, KNNIndex
 from repro_torch.core.journal import UpdateJournal
 from repro_torch.core.updates import insert_affected_set
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 _FORMAT = "repro-knn-index"

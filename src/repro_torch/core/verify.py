@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.bngraph import BNGraph
-from repro_torch.core.construct import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 

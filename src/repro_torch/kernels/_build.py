@@ -21,7 +21,9 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("topk_merge", "sweep_merge", "frontier_relax", "minplus")
+KERNELS = (
+    "topk_merge", "sweep_merge", "frontier_relax", "minplus", "retrieval_topk", "flash_attention",
+)
 HEADERS = ("kround.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,7 +1,8 @@
 """Public wrappers around the CUDA kernels, and the plain-torch table ops.
 
-Four functions here launch a hand-written kernel (``csrc/*.cu``):
-``topk_merge``, ``sweep_merge``, ``frontier_relax`` and ``minplus_matmul``.
+Six functions here launch a hand-written kernel (``csrc/*.cu``):
+``topk_merge``, ``sweep_merge``, ``frontier_relax``, ``minplus_matmul``,
+``retrieval_topk`` and ``flash_attention``.
 Given CUDA tensors and ``use_kernel=True`` (the default) a wrapper checks
 device, dtype, shape and contiguity, launches its kernel on the current
 stream and raises if the launch is refused; it never gives way to the plain
@@ -25,7 +26,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-LAUNCHES = {"topk_merge": 0, "sweep_merge": 0, "frontier_relax": 0, "minplus": 0}
+LAUNCHES = {"topk_merge": 0, "sweep_merge": 0, "frontier_relax": 0, "minplus": 0,
+            "retrieval_topk": 0, "flash_attention": 0}
 
 # what one block may have on an H100 (227 KB of the SM's 256 KB)
 MAX_SMEM_BYTES = 232448
@@ -53,6 +55,9 @@ _SIGNATURES = {
     "knn_sweep_merge": ([_P] * 9 + [_I] * 8 + [_P], _I),
     "knn_frontier_relax": ([_P] * 7 + [_I] * 4 + [_P], _I),
     "knn_minplus": ([_P] * 3 + [_I] * 3 + [_P], _I),
+    "knn_retrieval_topk": ([_P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+    "knn_retrieval_tile": ([], _I),
+    "knn_flash_attention": ([_P] * 4 + [_I] * 8 + [ctypes.c_float, _P], _I),
     "knn_topk_merge_smem": ([_I, _I], ctypes.c_longlong),
     "knn_sweep_merge_smem": ([_I, _I, _I], ctypes.c_longlong),
 }
@@ -309,6 +314,116 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = True)
             )
         _launched("minplus", code)
     return out.to(a.dtype)
+
+
+# ----------------------------------------------------------------------
+# K5 retrieval_topk
+# ----------------------------------------------------------------------
+
+# largest k the kernel takes: its threshold is the k-th of a block's 1024
+# per-thread maxima
+RETRIEVAL_MAX_K = 1024
+_RETRIEVAL_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_RETRIEVAL_KEYS = 3
+# the kernel's grid puts rows on its y axis
+RETRIEVAL_MAX_ROWS = 65535
+
+
+def retrieval_topk(scores: torch.Tensor, k: int, *, use_kernel: bool = True):
+    """k largest scores per row and their column indices.
+
+    scores (B, N) float32, float16 or bfloat16 (math in float32). Returns
+    ((B, k) int32 ids, (B, k) scores in the input type), best first; equal
+    scores go to the smaller column. A -inf score gives (-1, -inf), and so
+    does every slot past the row's last finite score (N < k included), as in
+    the JAX package's kernel path. NaN is read as -inf. k <= 1024.
+
+    CUDA kernel: ``csrc/retrieval_topk.cu`` (replaces ``retrieval_topk_pallas``).
+    N is split across blocks of 8192 columns, each selecting its k best; the
+    kernel then runs again over those candidates until one block per row is
+    left. Each pass is one launch (three at N = 10^6, k = 100). Bound by
+    bytes: B*N scores read once, B*k*8 written.
+    """
+    if not 1 <= k <= RETRIEVAL_MAX_K:
+        raise ValueError(f"retrieval_topk: k={k}, the kernel takes 1 <= k <= {RETRIEVAL_MAX_K}")
+    if not (scores.is_cuda and use_kernel):
+        return ref.retrieval_topk_ref(scores, k)
+    dev = scores.device
+    b, n = scores.shape
+    if scores.dtype not in _RETRIEVAL_DTYPES:
+        raise TypeError(f"retrieval_topk: dtype {scores.dtype}, expected float32/16 or bfloat16")
+    if n >= 2**31 - 1 or b > RETRIEVAL_MAX_ROWS:
+        raise ValueError(f"retrieval_topk: ({b}, {n}) scores; the kernel takes at most "
+                         f"{RETRIEVAL_MAX_ROWS} rows and 2^31 - 2 columns")
+    _check("scores", scores, scores.dtype, (b, n), dev)
+    out_ids = torch.empty((b, k), dtype=torch.int32, device=dev)
+    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
+    fn = _fn("retrieval_topk", "knn_retrieval_topk")
+    tile = _fn("retrieval_topk", "knn_retrieval_tile")()
+    src, code, width = scores, _RETRIEVAL_DTYPES[scores.dtype], n
+    while b:
+        tiles = max(1, -(-width // tile))
+        keys = torch.empty((b, tiles, k), dtype=torch.int64, device=dev) if tiles > 1 else None
+        with torch.cuda.device(dev):
+            rc = fn(src.data_ptr(), code, b, width, k, None if keys is None else keys.data_ptr(),
+                    out_ids.data_ptr(), out_s.data_ptr(), _stream(dev))
+        _launched("retrieval_topk", rc)
+        if keys is None:
+            break
+        src, code, width = keys, _RETRIEVAL_KEYS, tiles * k
+    return out_ids, out_s.to(scores.dtype)
+
+
+# ----------------------------------------------------------------------
+# K6 flash_attention
+# ----------------------------------------------------------------------
+
+_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's head dim (every model the port serves)
+ATTN_HEAD_DIM = 128
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """Attention forward: q (B, S, H, D), k and v (B, T, Hkv, D) -> (B, S, H, D).
+
+    Softmax over q.k / sqrt(D), grouped-query (query head h reads kv head
+    h // (H / Hkv), K and V never repeated), causal on absolute positions
+    (column j <= row i) when asked; a row with every column masked gives 0.
+    float32 or bfloat16 in, q's type out; scores, softmax statistics and the
+    accumulator in float32, p rounded to v's type before the PV product.
+
+    CUDA kernel: ``csrc/flash_attention.cu`` (replaces ``flash_attention_pallas``).
+    One block per (b, h, 64-row query tile), 64-row kv tiles staged in shared
+    memory, the running max, sum and accumulator in registers; any S and T, no
+    padding; D = 128. Bound by operations: 4*B*H*S*T*D flops (half of it
+    under the causal mask) against the bf16 tensor-core rate.
+    """
+    if not (q.is_cuda and use_kernel):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    dev = q.device
+    b, s, h, d = q.shape
+    if k.ndim != 4 or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
+    t, hkv = k.shape[1], k.shape[2]
+    if q.dtype not in _ATTN_DTYPES:
+        raise TypeError(f"flash_attention: dtype {q.dtype}, expected float32 or bfloat16")
+    if d != ATTN_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d}, the kernel takes {ATTN_HEAD_DIM}")
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"flash_attention: {h} query heads are not a multiple of {hkv} kv heads")
+    _check("q", q, q.dtype, (b, s, h, d), dev)
+    _check("k", k, q.dtype, (b, t, hkv, d), dev)
+    _check("v", v, q.dtype, (b, t, hkv, d), dev)
+    out = torch.empty_like(q)
+    if b and s and h:
+        with torch.cuda.device(dev):
+            code = _fn("flash_attention", "knn_flash_attention")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _ATTN_DTYPES[q.dtype], b, s, t, h, hkv, d, int(causal), d**-0.5, _stream(dev),
+            )
+        _launched("flash_attention", code)
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the four kernels (the equality targets).
+"""Plain PyTorch versions of the six kernels (the equality targets).
 
 These run on any device. The CPU tests use them, the wrappers in ``ops.py``
 use them for CPU tensors, and the on-card check compares each CUDA kernel
-with its function here on the same inputs. Semantics are those of
+with its function here on the same inputs. The four kNN kernels follow
 ``kround_merge`` and the ``*_ref`` oracles of the JAX package: exact, no
-summation order to differ in (one float32 add, then mins).
+summation order to differ in (one float32 add, then mins). ``retrieval_topk``
+follows the JAX package's kernel path (exact too); ``flash_attention`` sums
+in another order than any kernel, so it is held to a tolerance.
 """
 from __future__ import annotations
 
@@ -14,6 +16,10 @@ _INT_MAX = torch.iinfo(torch.int32).max
 _INF = float("inf")
 # largest (rows, t, N) temporary minplus_matmul_ref materialises at once
 _MINPLUS_TEMP_BYTES = 1 << 30
+# largest (rows, N) sort retrieval_topk_ref runs at once (values + indices)
+_TOPK_TEMP_BYTES = 1 << 30
+# query and kv rows per block of flash_attention_ref
+_ATTN_BLOCK = 1024
 
 
 def kround_merge(cand_ids: torch.Tensor, cand_d: torch.Tensor, k: int):
@@ -137,3 +143,76 @@ def minplus_matmul_ref(a: torch.Tensor, b: torch.Tensor):
                 rows = out[r0 : r0 + r_step]
                 torch.minimum(rows, part, out=rows)
     return out.to(a.dtype)
+
+
+def retrieval_topk_ref(scores: torch.Tensor, k: int):
+    """k largest scores per row and their column indices, best first.
+
+    The JAX package's kernel path, which its own oracle does not match (see
+    ``ops.retrieval_topk``): math in float32, equal scores to the smaller
+    column, a -inf score gives (-1, -inf), the output is always (B, k) with
+    (-1, -inf) past the row's last finite score; NaN reads as -inf and -0.0
+    as +0.0. A stable descending sort over chunks of rows, so a (512, 10^6)
+    input needs at most a 1 GiB temporary.
+    """
+    b, n = scores.shape
+    dev = scores.device
+    out_ids = torch.full((b, k), -1, dtype=torch.int32, device=dev)
+    out_s = torch.full((b, k), -_INF, dtype=torch.float32, device=dev)
+    kk = min(k, n)
+    if b and kk:
+        step = max(1, _TOPK_TEMP_BYTES // (12 * n))
+        for r0 in range(0, b, step):
+            s = scores[r0 : r0 + step].to(torch.float32)
+            s = torch.where(torch.isnan(s), -_INF, s) + 0.0
+            top, idx = torch.sort(s, dim=1, descending=True, stable=True)
+            top, idx = top[:, :kk], idx[:, :kk]
+            out_ids[r0 : r0 + step, :kk] = torch.where(top > -_INF, idx.to(torch.int32), -1)
+            out_s[r0 : r0 + step, :kk] = top
+    return out_ids, out_s.to(scores.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool):
+    """Attention over blocks with an online softmax, as ``nn.chunked_attention``
+    and the Pallas kernel compute it: q (B, S, H, D), k and v (B, T, Hkv, D).
+
+    Grouped-query heads by a (Hkv, H/Hkv) view, never by repeating K and V;
+    causal on absolute positions; scores, running max, sum and accumulator in
+    float32, p rounded to v's type before the PV product, a fully masked row
+    0; output in q's type. Blocks of 1024 query and kv rows bound the
+    temporaries, so the kernel's own shapes (S = T = 32,768) fit; kv blocks
+    past a query block's last row are skipped under the causal mask.
+    """
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = d**-0.5
+    dev = q.device
+    out = torch.empty_like(q)
+    qg = q.reshape(b, s, hkv, rep, d)
+    for q0 in range(0, s, _ATTN_BLOCK):
+        qb = qg[:, q0 : q0 + _ATTN_BLOCK].to(torch.float32)
+        sq = qb.shape[1]
+        q_pos = torch.arange(q0, q0 + sq, device=dev)
+        m = torch.full((b, hkv, rep, sq), -_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, hkv, rep, sq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hkv, rep, sq, d), dtype=torch.float32, device=dev)
+        k_end = min(t, q0 + sq) if causal else t
+        for k0 in range(0, k_end, _ATTN_BLOCK):
+            kb = k[:, k0 : k0 + _ATTN_BLOCK].to(torch.float32)
+            vb = v[:, k0 : k0 + _ATTN_BLOCK]
+            sc = torch.einsum("bqgrd,bkgd->bgrqk", qb, kb) * scale
+            if causal:
+                k_pos = torch.arange(k0, k0 + kb.shape[1], device=dev)
+                sc = torch.where(q_pos[:, None] >= k_pos[None, :], sc, -_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.where(torch.isfinite(m_new)[..., None], torch.exp(sc - m_new[..., None]), 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_new), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bgrqk,bkgd->bgrqd", p.to(v.dtype).to(torch.float32),
+                              vb.to(torch.float32))
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        o = acc / torch.clamp_min(l, 1e-30)[..., None]
+        out[:, q0 : q0 + sq] = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    return out

@@ -22,8 +22,9 @@ import json
 import time
 
 from repro_torch import knn
-from repro_torch.core.construct import build_knn_tables, prepare_sweep, resolve_device
+from repro_torch.core.construct import build_knn_tables, prepare_sweep
 from repro_torch.core.verify import certificate
+from repro_torch.device import resolve_device
 
 
 def main(argv=None):

@@ -1,11 +1,27 @@
-"""kNN serving driver: a device-resident ``QueryEngine`` under mixed traffic
-(batched queries + staged object updates, the paper's batch-update-arrival
-model).
+"""Serving driver, dispatched by architecture family.
+
+LM archs (``qwen2.5-3b``): batched prefill, then an autoregressive decode
+loop; the prefill's attention is the K6 kernel:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+      --batch 4 --prompt-len 2048 --gen 32
+
+It prints the JAX driver's two lines (prefill and decode times, the first
+sequence's tokens) and one JSON line: prefill ms, decode tokens/s and the
+kernels' launch counts. Weights are random, drawn on the device from seed 0;
+the times are of a warm run (one untimed prefill and decode step before it).
+
+kNN archs (``knn-index``): a device-resident ``QueryEngine`` under mixed
+traffic (batched queries + staged object updates, the paper's
+batch-update-arrival model):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch knn-index \\
       --grid 141 --k 20 --artifact index.npz --ops 200000 --update-frac 0.05
 
-The loop builds (or loads, ``--artifact``, a ``knn_build --out`` npz of either
+As in the JAX package, ``serve.py`` does not serve the recsys family; its
+entry point is ``python -m repro_torch.examples.retrieval_recsys``.
+
+The kNN loop builds (or loads, ``--artifact``, a ``knn_build --out`` npz of either
 package) the index, then serves rounds of ``query_batch`` with updates staged
 into the engine's queue and flushed once per round, printing queries/s,
 updates/s and the engine's serving stats as JSON. Without ``--grid`` the
@@ -40,13 +56,75 @@ import json
 import time
 
 import numpy as np
+import torch
 
 from repro_torch import knn
 from repro_torch.configs import knn_index
-from repro_torch.core.construct import resolve_device, synchronize
+from repro_torch.configs.registry import get_arch
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.kernels import ops
 from repro_torch.workloads import drive_fleet_ticks
 
-ARCH = "knn-index"
+
+def _next_tokens(logits: torch.Tensor, temperature: float, gen: torch.Generator):
+    if temperature > 0:
+        probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0]
+    return torch.argmax(logits, dim=-1)
+
+
+def serve_lm(args) -> dict:
+    """Batched prefill + greedy (or sampled) decode loop."""
+    from repro_torch.models import transformer as tr
+
+    device = resolve_device(args.device)
+    arch = get_arch(args.arch)
+    cfg = arch.make_smoke() if args.smoke else arch.make_config()
+    params = tr.init_params(cfg, seed=0, device=device)
+    max_len = args.prompt_len + args.gen
+    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), device=device,
+                            generator=torch.Generator(device=device).manual_seed(1))
+
+    # warm-up: kernel build and load, library handles, allocator
+    logits, cache = tr.prefill(params, prompts, cfg, max_len, device=device,
+                               use_kernel=args.use_kernel)
+    tr.decode_step(params, cache, torch.argmax(logits, dim=-1), cfg)
+    del logits, cache
+    synchronize(device)
+
+    ops.reset_launches()
+    gen = torch.Generator(device=device).manual_seed(100)
+    t0 = time.perf_counter()
+    logits, cache = tr.prefill(params, prompts, cfg, max_len, device=device,
+                               use_kernel=args.use_kernel)
+    tokens = _next_tokens(logits, args.temperature, gen)
+    synchronize(device)
+    t_prefill = time.perf_counter() - t0
+    generated = [tokens]
+    t0 = time.perf_counter()
+    for _ in range(args.gen - 1):
+        logits, cache = tr.decode_step(params, cache, tokens, cfg)
+        tokens = _next_tokens(logits, args.temperature, gen)
+        generated.append(tokens)
+    synchronize(device)
+    t_decode = time.perf_counter() - t0
+    launches = ops.launches()
+
+    out = torch.stack(generated, dim=1).cpu().numpy()
+    tps = args.batch * (args.gen - 1) / max(t_decode, 1e-9)
+    print(f"model {cfg.name}: prefill({args.batch}x{args.prompt_len}) "
+          f"{t_prefill * 1e3:.1f} ms; decode {args.gen - 1} steps "
+          f"{t_decode * 1e3:.1f} ms ({tps:.1f} tok/s)")
+    print("generated token ids (first sequence):", out[0].tolist())
+    stats = {
+        "arch": args.arch, "model": cfg.name, "device": str(device),
+        "batch": args.batch, "prompt_len": args.prompt_len, "gen": args.gen,
+        "params": cfg.param_count(), "prefill_ms": t_prefill * 1e3,
+        "decode_ms": t_decode * 1e3, "decode_tok_per_s": tps, "launches": launches,
+        "tokens": out.tolist(),
+    }
+    print(json.dumps({key: val for key, val in stats.items() if key != "tokens"}))
+    return stats
 
 
 def serve_knn_fleet(args, g, bn, k: int, batch: int, t_bn: float, device) -> dict:
@@ -215,10 +293,16 @@ def serve_knn(args) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default=ARCH)
+    ap.add_argument("--arch", default="knn-index")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=None,
-                    help="query batch (default min(config query_batch, 4096))")
+                    help="lm: sequence batch (default 4); knn: query batch "
+                         "(default min(config query_batch, 4096))")
+    # lm options
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    # knn options
     ap.add_argument("--grid", type=int, default=None, help="grid side; n = grid^2")
     ap.add_argument("--k", type=int, default=None)
     ap.add_argument("--mu", type=float, default=0.02)
@@ -250,12 +334,21 @@ def main(argv=None):
     )
     args = ap.parse_args(argv)
 
-    if args.arch != ARCH:
-        raise SystemExit(
-            f"serve.py drives the 'knn' arch family; {args.arch!r} is not its arch "
-            f"{ARCH!r} (the JAX package's drivers serve the other families)"
-        )
-    return serve_knn(args)
+    try:
+        family = get_arch(args.arch).family
+    except KeyError:
+        family = None
+    if family == "lm":
+        args.batch = 4 if args.batch is None else args.batch
+        return serve_lm(args)
+    if family == "knn":
+        return serve_knn(args)
+    raise SystemExit(
+        f"serve.py serves an arch of the 'lm' or 'knn' arch family; {args.arch!r} is "
+        + (f"of the {family!r} family (its entry point is "
+           "python -m repro_torch.examples.retrieval_recsys)" if family
+           else "not an arch of this package")
+    )
 
 
 if __name__ == "__main__":

@@ -1,0 +1,214 @@
+"""Decoder-only transformer, dense FFN, GQA, QKV bias, RoPE, KV cache: the
+dense subset of ``repro/models/transformer.py`` (forward, prefill, decode).
+
+Parameters are a dict of tensors in the JAX package's layout, with the layers
+as a list of per-layer dicts (the JAX package stacks them on a leading axis
+for ``lax.scan``; a Python loop runs them here). The attention of ``forward``
+and ``prefill`` is ``nn.attention``, the K6 kernel on the card; ``decode_step``
+keeps the JAX package's grouped product against the cache in plain torch. The
+cache is updated in place (the JAX package returns a new one): ``prefill``
+makes it, each ``decode_step`` writes one position of it and returns it.
+MoE layers wait for a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import check_on, resolve_device
+from repro_torch.models import nn
+from repro_torch.models.common import normal, tensor_from_numpy
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    param_dtype: torch.dtype = torch.bfloat16
+
+    def param_count(self) -> int:
+        """Weights of the projections, FFN and embeddings (the JAX package's
+        count: biases and norm gains left out)."""
+        d, hd = self.d_model, self.d_head
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        ffn = 3 * d * self.d_ff
+        emb = 2 * self.vocab * d
+        return self.n_layers * (attn + ffn) + emb
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: TransformerConfig, *, seed: int = 0, device="cuda") -> dict:
+    """Random parameters of the JAX package's shapes and scales, drawn on
+    ``device`` from a generator seeded with ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = cfg.param_dtype
+    d, hd = cfg.d_model, cfg.d_head
+
+    def layer():
+        return {
+            "ln1": nn.rmsnorm_init(d, dt, dev),
+            "wq": nn.dense_init(gen, d, cfg.n_heads * hd, bias=cfg.qkv_bias, dtype=dt),
+            "wk": nn.dense_init(gen, d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, dtype=dt),
+            "wv": nn.dense_init(gen, d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, dtype=dt),
+            "wo": nn.dense_init(gen, cfg.n_heads * hd, d, dtype=dt),
+            "ln2": nn.rmsnorm_init(d, dt, dev),
+            "w_gate": nn.dense_init(gen, d, cfg.d_ff, dtype=dt),
+            "w_up": nn.dense_init(gen, d, cfg.d_ff, dtype=dt),
+            "w_down": nn.dense_init(gen, cfg.d_ff, d, dtype=dt),
+        }
+
+    layers = [layer() for _ in range(cfg.n_layers)]
+    emb_std = 1.0 / math.sqrt(d)
+    return {
+        "embed": normal(gen, (cfg.vocab, d), emb_std, dt),
+        "layers": layers,
+        "ln_f": nn.rmsnorm_init(d, dt, dev),
+        "unembed": normal(gen, (d, cfg.vocab), emb_std, dt),
+    }
+
+
+def params_from_numpy(tree: dict, cfg: TransformerConfig, device="cuda") -> dict:
+    """The JAX package's ``init_params`` tree, as numpy arrays (layers stacked
+    on a leading axis), as this module's parameters on ``device``."""
+    dev = resolve_device(device)
+    stacked = tree["layers"]
+
+    def layer(i):
+        return {name: {key: tensor_from_numpy(arr[i], dev) for key, arr in sub.items()}
+                for name, sub in stacked.items()}
+
+    n = len(stacked["ln1"]["g"])
+    if n != cfg.n_layers:
+        raise ValueError(f"{n} layers in the tree, {cfg.name} has {cfg.n_layers}")
+    return {
+        "embed": tensor_from_numpy(tree["embed"], dev),
+        "layers": [layer(i) for i in range(n)],
+        "ln_f": {"g": tensor_from_numpy(tree["ln_f"]["g"], dev)},
+        "unembed": tensor_from_numpy(tree["unembed"], dev),
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def _dense_ffn(lp, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(nn.dense_apply(lp["w_gate"], x)) * nn.dense_apply(lp["w_up"], x)
+    return nn.dense_apply(lp["w_down"], h)
+
+
+def _attn_proj(lp, x, cfg: TransformerConfig, pos):
+    b, s, _ = x.shape
+    hd = cfg.d_head
+    q = nn.dense_apply(lp["wq"], x).reshape(b, s, cfg.n_heads, hd)
+    k = nn.dense_apply(lp["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    v = nn.dense_apply(lp["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    return nn.apply_rope(q, pos, cfg.rope_theta), nn.apply_rope(k, pos, cfg.rope_theta), v
+
+
+def _layer_fwd(lp, x, cfg: TransformerConfig, pos, use_kernel: bool):
+    """One layer over a whole sequence (causal); returns (x, k, v)."""
+    b, s, _ = x.shape
+    q, k, v = _attn_proj(lp, nn.rmsnorm_apply(lp["ln1"], x), cfg, pos)
+    o = nn.attention(q, k, v, causal=True, use_kernel=use_kernel)
+    x = x + nn.dense_apply(lp["wo"], o.reshape(b, s, cfg.n_heads * cfg.d_head))
+    return x + _dense_ffn(lp, nn.rmsnorm_apply(lp["ln2"], x)), k, v
+
+
+def _tokens(params, tokens, dev) -> torch.Tensor:
+    check_on(params["embed"], dev, "parameters")
+    return torch.as_tensor(tokens, device=params["embed"].device).long()
+
+
+def _logits(params, x: torch.Tensor) -> torch.Tensor:
+    x = nn.rmsnorm_apply(params["ln_f"], x)
+    return x @ params["unembed"].to(x.dtype)
+
+
+def forward(params, tokens, cfg: TransformerConfig, *, device="cuda",
+            use_kernel: bool = True) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V)."""
+    tok = _tokens(params, tokens, resolve_device(device))
+    x = params["embed"].to(cfg.param_dtype)[tok]
+    pos = torch.arange(tok.shape[1], device=tok.device)
+    for lp in params["layers"]:
+        x, _, _ = _layer_fwd(lp, x, cfg, pos, use_kernel)
+    return _logits(params, x)
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int, *, device="cuda") -> dict:
+    """Zeroed (L, B, max_len, Hkv, D) K and V caches in the parameters' type;
+    ``len`` is the number of positions written (a host integer)."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=cfg.param_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.param_dtype, device=dev), "len": 0}
+
+
+def prefill(params, tokens, cfg: TransformerConfig, max_len: int, *, device="cuda",
+            use_kernel: bool = True):
+    """Run the prompt (B, S) through the model: (last-position logits (B, V),
+    cache with the prompt's K and V in positions 0..S-1)."""
+    tok = _tokens(params, tokens, resolve_device(device))
+    b, s = tok.shape
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens does not fit a cache of {max_len}")
+    x = params["embed"].to(cfg.param_dtype)[tok]
+    pos = torch.arange(s, device=tok.device)
+    cache = init_cache(cfg, b, max_len, device=tok.device)
+    for li, lp in enumerate(params["layers"]):
+        x, k, v = _layer_fwd(lp, x, cfg, pos, use_kernel)
+        cache["k"][li, :, :s] = k
+        cache["v"][li, :, :s] = v
+    cache["len"] = s
+    return _logits(params, x[:, -1:])[:, 0], cache
+
+
+def decode_step(params, cache: dict, tokens, cfg: TransformerConfig):
+    """One autoregressive step on the cache's device: tokens (B,) -> logits
+    (B, V); writes position ``cache['len']`` of the cache and advances it."""
+    kc_all, vc_all = cache["k"], cache["v"]
+    dev = kc_all.device
+    tok = _tokens(params, tokens, dev)
+    b = tok.shape[0]
+    t = kc_all.shape[2]
+    cur = cache["len"]
+    if cur >= t:
+        raise ValueError(f"cache of {t} positions is full")
+    x = params["embed"].to(cfg.param_dtype)[tok][:, None, :]  # (B, 1, d)
+    pos = torch.tensor([cur], device=dev)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    mask = (torch.arange(t, device=dev) <= cur)[None, None, None, None, :]
+    for li, lp in enumerate(params["layers"]):
+        q, k, v = _attn_proj(lp, nn.rmsnorm_apply(lp["ln1"], x), cfg, pos)
+        kc, vc = kc_all[li], vc_all[li]
+        kc[:, cur] = k[:, 0]
+        vc[:, cur] = v[:, 0]
+        # the whole cache, masked past the current position; grouped heads,
+        # K and V never repeated per query head
+        qg = q.reshape(b, 1, cfg.n_kv_heads, rep, cfg.d_head)
+        sc = torch.einsum("bqgrd,btgd->bgrqt", qg, kc).to(torch.float32) * cfg.d_head**-0.5
+        sc = torch.where(mask, sc, -math.inf)
+        w = torch.softmax(sc, dim=-1).to(vc.dtype)
+        o = torch.einsum("bgrqt,btgd->bqgrd", w, vc)
+        x = x + nn.dense_apply(lp["wo"], o.reshape(b, 1, cfg.n_heads * cfg.d_head))
+        x = x + _dense_ffn(lp, nn.rmsnorm_apply(lp["ln2"], x))
+    cache["len"] = cur + 1
+    return _logits(params, x)[:, 0], cache

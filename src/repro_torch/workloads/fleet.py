@@ -21,7 +21,7 @@ import time
 
 import numpy as np
 
-from repro_torch.core.construct import synchronize
+from repro_torch.device import synchronize
 from repro_torch.graph.csr import Graph
 
 

@@ -373,5 +373,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ids, d = _topk_case(4, 16, np.float32, 0)
     ops.topk_merge(*_t(ids, d), 3)
     ops.minplus_matmul(torch.from_numpy(d), torch.from_numpy(d.T.copy()))
+    ops.retrieval_topk(torch.from_numpy(d), 3)
+    q = torch.zeros((1, 4, 2, 64))
+    ops.flash_attention(q, q[:, :, :1], q[:, :, :1], causal=True)
     assert ops.launches() == {"topk_merge": 0, "sweep_merge": 0, "frontier_relax": 0,
-                              "minplus": 0}
+                              "minplus": 0, "retrieval_topk": 0, "flash_attention": 0}

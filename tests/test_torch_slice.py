@@ -115,7 +115,11 @@ def test_importing_the_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.knn, repro_torch.launch.knn_build, repro_torch.configs.knn_index\n"
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
         "import repro_torch.launch.serve, repro_torch.core.verify, repro_torch.core.journal\n"
-        "import repro_torch.workloads\n"
+        "import repro_torch.workloads, repro_torch.device\n"
+        "import repro_torch.models.recsys, repro_torch.models.transformer, repro_torch.models.nn\n"
+        "import repro_torch.models.common, repro_torch.data.pipeline\n"
+        "import repro_torch.configs.xdeepfm, repro_torch.configs.qwen2_5_3b\n"
+        "import repro_torch.configs.registry, repro_torch.examples.retrieval_recsys\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.') or m == 'triton']\n"
         "print(bad)\n"
