@@ -9,48 +9,49 @@
 // (src/repro/kernels/flash_attention.py), a (B*H, S/bq, T/bk) grid whose
 // innermost, sequential axis carried the running max m, sum l and float32
 // accumulator of one query block across the kv blocks in VMEM scratch, with
-// the kv head chosen by the BlockSpec index map. Here: one block of 256
-// threads per (b, h, 64-row query tile); the kv loop runs inside the block over
-// 64-row kv tiles staged in shared memory, and (m, l, acc) stay in registers.
-// The kv head is index math, so K and V are never repeated. Under the causal
-// mask the loop stops at the tile's last row: later kv tiles are all masked
-// and would change nothing. Out-of-range query rows read 0 and are not
-// stored; out-of-range kv columns score -inf. So any S and T work, unpadded.
+// the kv head chosen by the BlockSpec index map. Here the kv loop runs inside
+// a block, (m, l, acc) stay in registers, and the kv head is index math, so K
+// and V are never repeated. Under the causal mask the loop stops at the query
+// tile's last row: later kv tiles are all masked and would change nothing.
+// Out-of-range query rows are not stored and out-of-range kv columns score
+// -inf, so any S and T work, unpadded.
 //
-// Arithmetic as the Pallas body: scores in float32 from q and k widened to
-// float32, times the scale; p = 0 where the new max is -inf, the correction
-// 0 where the old max is -inf; l sums p in float32, and p is rounded to v's
-// type before the PV product (float32 accumulation); out = acc / max(l, 1e-30).
+// Arithmetic as the Pallas body: scores in float32, times the scale; p = 0
+// where the new max is -inf, the correction 0 where the old max is -inf; l
+// sums p in float32, and p is rounded to v's type before the PV product
+// (float32 accumulation); out = acc / max(l, 1e-30).
 //
 // Bound on an H100: operations. 4*B*H*S*T*D flops (halved under the causal
 // mask) against the tensor cores' 989 TFLOP/s in bf16, while the bytes (q, k,
-// v read once, the output written once) take microseconds. This first kernel
-// does the products with float32 FMAs on the CUDA cores (4 x 4 scores and
-// 4 x D/16 outputs per thread, float4 reads of shared memory), so it cannot
-// come within 15x of that bound; wgmma is the step after.
+// v read once, the output written once) take microseconds. Two routes, by
+// dtype (knn_flash_attention below):
+//
+// - bfloat16 (namespace hopper): the tensor cores. wgmma for both products,
+//   tiles brought by TMA into a three-stage ring by one loader warp, two
+//   consumer warpgroups (see there).
+// - float32 (namespace simt): Hopper's tensor cores take float32 only as TF32
+//   (a 10-bit mantissa), too coarse for the float32 contract, so float32 stays
+//   on the CUDA cores: one block of 256 threads per (b, h, 64-row query tile),
+//   64-row kv tiles staged in shared memory, float32 FMAs (4 x 4
+//   scores and 4 x D/16 outputs per thread, float4 reads of shared memory).
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
+#include <cstdint>
+
 namespace {
 
-constexpr int D = 128;       // head dim (every model the port serves)
+constexpr int D = 128;  // head dim (every model the port serves)
+
+namespace simt {
+
 constexpr int BQ = 64;       // query rows per block
 constexpr int BK = 64;       // kv rows per stage
 constexpr int THREADS = 256;  // 16 x 16: ty owns rows 4*ty..4*ty+3, tx columns
 constexpr int KPAD = 4;      // kv row padding (floats): conflict-free float4 reads
 constexpr int PPAD = 4;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// p as the PV product sees it: rounded to v's type
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
 
 __device__ __forceinline__ float group16_max(float x) {
 #pragma unroll
@@ -68,20 +69,18 @@ constexpr size_t SMEM_BYTES = sizeof(float) * (BQ * D + BK * (D + KPAD) + BQ * (
 
 // Stages rows [r0, r0 + nrows) of one head of x (row stride `stride`
 // elements) into dst (nrows x ld floats); rows at or past `limit` read 0.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* x, size_t stride,
+__device__ __forceinline__ void stage(float* dst, int ld, const float* x, size_t stride,
                                       int r0, int nrows, int limit) {
   for (int idx = threadIdx.x; idx < nrows * D; idx += THREADS) {
     const int r = idx / D, c = idx % D;
     const int gr = r0 + r;
-    dst[r * ld + c] = gr < limit ? to_f32(x[static_cast<size_t>(gr) * stride + c]) : 0.0f;
+    dst[r * ld + c] = gr < limit ? x[static_cast<size_t>(gr) * stride + c] : 0.0f;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int s_len,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out, int s_len,
                        int t_len, int h, int hkv, int causal, float scale) {
   constexpr int CPT = D / 16;  // output columns per thread: CPT/4 float4 groups
   extern __shared__ __align__(16) float smem[];
@@ -96,12 +95,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g = head / (h / hkv);
   const size_t q_stride = static_cast<size_t>(h) * D;
   const size_t kv_stride = static_cast<size_t>(hkv) * D;
-  const T* qh = q + (static_cast<size_t>(b) * s_len * h + head) * D;
-  const T* kh = k + (static_cast<size_t>(b) * t_len * hkv + g) * D;
-  const T* vh = v + (static_cast<size_t>(b) * t_len * hkv + g) * D;
+  const float* qh = q + (static_cast<size_t>(b) * s_len * h + head) * D;
+  const float* kh = k + (static_cast<size_t>(b) * t_len * hkv + g) * D;
+  const float* vh = v + (static_cast<size_t>(b) * t_len * hkv + g) * D;
   const float neg_inf = __int_as_float(0xff800000);
 
-  stage<T>(qs, D, qh, q_stride, q0, BQ, s_len);
+  stage(qs, D, qh, q_stride, q0, BQ, s_len);
 
   float m[4], l[4], acc[4][CPT];
 #pragma unroll
@@ -115,7 +114,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = causal ? min(t_len, q0 + BQ) : t_len;
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();  // the previous stage's PV product is done with kv and ps
-    stage<T>(kv, D + KPAD, kh, kv_stride, k0, BK, t_len);
+    stage(kv, D + KPAD, kh, kv_stride, k0, BK, t_len);
     __syncthreads();
 
     // scores of rows 4*ty+i, columns tx + 16*j
@@ -160,7 +159,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = live ? expf(sc[i][j] - m_new) : 0.0f;
         psum += p;
-        ps[(4 * ty + i) * (BK + PPAD) + tx + 16 * j] = round_to<T>(p);
+        ps[(4 * ty + i) * (BK + PPAD) + tx + 16 * j] = p;
       }
       l[i] = l[i] * corr + group16_sum(psum);
       m[i] = m_new;
@@ -168,7 +167,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < CPT; ++c) acc[i][c] *= corr;
     }
     __syncthreads();  // scores done with K; p complete
-    stage<T>(kv, D + KPAD, vh, kv_stride, k0, BK, t_len);
+    stage(kv, D + KPAD, vh, kv_stride, k0, BK, t_len);
     __syncthreads();
 
     // acc[i][4*gi + e] is output column 64*gi + 4*tx + e
@@ -202,35 +201,479 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + 4 * ty + i;
     if (qi >= s_len) continue;
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
-    T* o = out + (static_cast<size_t>(b) * s_len + qi) * q_stride +
-           static_cast<size_t>(head) * D;
+    float* o = out + (static_cast<size_t>(b) * s_len + qi) * q_stride +
+               static_cast<size_t>(head) * D;
 #pragma unroll
     for (int gi = 0; gi < CPT / 4; ++gi)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        o[64 * gi + 4 * tx + e] = from_f32<T>(acc[i][4 * gi + e] * inv);
+        o[64 * gi + 4 * tx + e] = acc[i][4 * gi + e] * inv;
   }
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int b, int s_len,
            int t_len, int h, int hkv, int causal, float scale, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T>;
+  auto kernel = flash_attention_kernel;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(SMEM_BYTES));  // 82 KB, over 48 KB
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((s_len + BQ - 1) / BQ, h, b);
   kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), s_len, t_len, h, hkv, causal, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), s_len, t_len, h, hkv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bfloat16 on the tensor cores (sm_90a)
+//
+// One block of nine warps per (b, h, 128-row query tile): two consumer
+// warpgroups of 64 query rows each and one loader warp. One thread of the
+// loader brings Q once, then K and V tiles of 128 kv rows into a three-stage
+// ring, each tile as two TMA boxes of 64 columns (128 bytes, one swizzle atom
+// wide) x 128 rows, completing on an mbarrier per stage and operand. Per kv
+// tile a consumer warpgroup computes
+//   S = Q K^T   8 x wgmma.m64n128k16, Q and K both K-major in shared memory;
+//   the online softmax on S in registers (a row spans the 4 threads of a quad);
+//   O += P V    8 x wgmma.m64n128k16 with P from registers (the accumulator
+//               fragment of S, rounded to bf16, is the A fragment as it is)
+//               and V read in its (kv, d) layout through the descriptor's
+//               transpose bit, never transposed in memory;
+// then gives the stage back to the loader (one arrive per warp). The two
+// consumer warpgroups run unsynchronised, so one's softmax overlaps the
+// other's products. Shared memory: Q 32 KB + 3 x (K 32 KB + V 32 KB).
+//
+// What bounds it: once both products are on the tensor cores, the softmax's
+// instructions on the CUDA cores (a tile is 64 scores a thread). So 2^x is one
+// ex2.approx, a row that is masked everywhere is guarded once per row and not
+// per score, and the accumulator is rescaled only where a row's max moved.
+//
+// Registers: S and O take 64 + 64 floats a thread and P 32 more. A quarter of
+// the register file holds three of the nine (or twelve) warps, so ptxas
+// allocates at most 168 a thread. setmaxnreg (24 for a loading warpgroup,
+// 240 for the consumers) was tried with twelve warps: ptxas still compiled
+// the consumers within 168, spilled and serialised their wgmma. This
+// schedule needs 160, so the loader is one warp and there is no setmaxnreg.
+//
+// Layout contract, the one place a wrong bit gives wrong numbers and no
+// fault: TMA writes each box with CU_TENSOR_MAP_SWIZZLE_128B (16-byte chunk c
+// of row r lands at chunk c ^ (r % 8)), keyed on address bits 4-9, so every
+// tile starts on 1024 bytes; the wgmma descriptors say "128-byte swizzle"
+// (layout type 1). K-major (Q, K): 8-row groups 1024 bytes apart (SBO), a
+// k16 step advances the start by 32 bytes within the atom, and k >= 64 moves
+// to the second box. MN-major (V): 8-row k groups 1024 bytes apart (SBO), the
+// two 64-column boxes 16 KB apart (LBO), a k16 step is 2048 bytes.
+//
+// Ragged edges: TMA zero-fills rows past S or T; a zero K row would score 0,
+// so columns >= T are masked to -inf (only in the tile that holds T, and in
+// the diagonal tile under the causal mask); query rows >= S are not stored.
+// Query tiles run heaviest first (blockIdx.y reversed), so the causal grid's
+// tail is short. The 8 query heads sharing a kv head are adjacent in
+// blockIdx.x and reread its tiles from L2; packing them into one block (one
+// K/V load for several heads) was not tried.
+// ---------------------------------------------------------------------------
+namespace hopper {
+
+constexpr int BQ = 128;         // query rows per block: two consumer warpgroups of 64
+constexpr int BK = 128;         // kv rows per tile
+constexpr int STAGES = 3;       // K/V tiles in the ring
+constexpr int THREADS = 288;    // warpgroups 0 and 1 compute, warp 8 loads
+constexpr int BOX = 64;         // columns of a TMA box: 64 bf16, one 128-byte swizzle atom
+constexpr uint32_t BOX_BYTES = 128 * BOX * 2;   // 128 rows x 128 bytes
+constexpr uint32_t TILE_BYTES = 2 * BOX_BYTES;  // 128 rows x D
+static_assert(BQ == 128 && BK == 128 && D == 2 * BOX, "one box shape serves Q, K and V");
+// Q, the K and V rings, 1 + 3 * STAGES mbarriers, and room to align to 1024
+constexpr size_t SMEM_BYTES = (1 + 2 * STAGES) * TILE_BYTES + 8 * (1 + 3 * STAGES) + 1024;
+// a wait longer than this many cycles (~9 s at 1.98 GHz) traps instead of hanging
+constexpr long long WAIT_LIMIT = 1ll << 34;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > WAIT_LIMIT) __trap();
+}
+
+// One box: coordinates innermost first (column, head, row, batch).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand: start address, leading and
+// stride byte offsets (16-byte units), layout type 1 (128-byte swizzle) in
+// bits 62-63, base offset 0 (atoms on 1024 bytes).
+__device__ __forceinline__ uint64_t sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+#define HOPPER_D64                                                                           \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),          \
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),          \
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),          \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),          \
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),          \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),          \
+      "+f"(d[62]), "+f"(d[63])
+#define HOPPER_R64                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "  \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "  \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, f32) = (accumulate ? d : 0) + A (64 x 16) B (16 x 128), A and
+// B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_R64
+      ", %64, %65, p, 1, 1, 0, 0;\n}"
+      : HOPPER_D64
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 pairs in registers) B (16 x 128), B
+// MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
+      : HOPPER_D64
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+#undef HOPPER_D64
+#undef HOPPER_R64
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit; results under 2^-126 flush to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Shared-memory addresses of one block: Q, the K and V rings, then the
+// mbarriers (q_full, k_full[], v_full[], empty[]).
+struct Smem {
+  uint32_t q, bars;
+  __device__ uint32_t k(int st) const { return q + TILE_BYTES * (1 + st); }
+  __device__ uint32_t v(int st) const { return q + TILE_BYTES * (1 + STAGES + st); }
+  __device__ uint32_t q_full() const { return bars; }
+  __device__ uint32_t k_full(int st) const { return bars + 8u * (1 + st); }
+  __device__ uint32_t v_full(int st) const { return bars + 8u * (1 + STAGES + st); }
+  __device__ uint32_t empty(int st) const { return bars + 8u * (1 + 2 * STAGES + st); }
+};
+
+// The loader thread: Q once, then K and V tile by tile into the ring, each
+// stage reused once both consumer warpgroups have given it back.
+__device__ __forceinline__ void load_tiles(const Smem& sm, const CUtensorMap* q_map,
+                                           const CUtensorMap* k_map, const CUtensorMap* v_map,
+                                           int b, int head, int g, int q0, int n_kv) {
+  mbar_expect_tx(sm.q_full(), TILE_BYTES);
+  tma_load(sm.q, q_map, sm.q_full(), 0, head, q0, b);
+  tma_load(sm.q + BOX_BYTES, q_map, sm.q_full(), BOX, head, q0, b);
+  for (int it = 0; it < n_kv; ++it) {
+    const int st = it % STAGES;
+    if (it >= STAGES) mbar_wait(sm.empty(st), (it / STAGES - 1) & 1);
+    mbar_expect_tx(sm.k_full(st), TILE_BYTES);
+    tma_load(sm.k(st), k_map, sm.k_full(st), 0, g, it * BK, b);
+    tma_load(sm.k(st) + BOX_BYTES, k_map, sm.k_full(st), BOX, g, it * BK, b);
+    mbar_expect_tx(sm.v_full(st), TILE_BYTES);
+    tma_load(sm.v(st), v_map, sm.v_full(st), 0, g, it * BK, b);
+    tma_load(sm.v(st) + BOX_BYTES, v_map, sm.v_full(st), BOX, g, it * BK, b);
+  }
+}
+
+// One kv tile of the online softmax, in place: masks the columns past T (and
+// past the row under the causal mask) where the tile holds any, turns s into
+// p = exp(s * scale - m_new), and updates the running max and sum. corr[i] is
+// what the accumulator's row i must be multiplied by (exactly 1 where the max
+// did not move).
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int k0, bool mask,
+                                             const int (&qi)[2], int c, int t_len, int causal,
+                                             float scale_log2) {
+  const float neg_inf = __int_as_float(0xff800000);
+  if (mask) {
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = k0 + 8 * n + c + (e & 1);
+        if (kj >= t_len || (causal && kj > qi[e >> 1])) s[4 * n + e] = neg_inf;
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = neg_inf;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) mx = fmaxf(mx, fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));  // a row spans the quad
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[i], mx);
+    // a row masked everywhere so far keeps m = -inf, and its p = 2^-inf = 0
+    const float mb = m_new == neg_inf ? 0.0f : __fmul_rn(m_new, scale_log2);
+    corr[i] = ex2(__fmul_rn(m[i], scale_log2) - mb);  // 0 while m was -inf
+    float psum = 0.0f;  // this thread's columns; the quad's sum is taken at the end
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float p = ex2(fmaf(s[4 * n + 2 * i + j], scale_log2, -mb));
+        s[4 * n + 2 * i + j] = p;
+        psum += p;
+      }
+    l[i] = l[i] * corr[i] + psum;
+    m[i] = m_new;
+  }
+}
+
+// A consumer warpgroup: its 64 query rows against every kv tile, then the
+// normalised rows stored.
+__device__ __forceinline__ void consume(const Smem& sm, __nv_bfloat16* __restrict__ out, int b,
+                                        int head, int h, int q0, int n_kv, int s_len, int t_len,
+                                        int causal, float scale_log2) {
+  const int cw = threadIdx.x / 128;  // rows 64*cw .. 64*cw+63 of the tile
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  // accumulator fragment: this thread holds rows r and r + 8, columns
+  // 8n + c and 8n + c + 1 for n < 16 (register 4n + 2i + j: row r + 8i,
+  // column 8n + c + j)
+  const int r = 64 * cw + 16 * warp + lane / 4;
+  const int c = 2 * (lane % 4);
+  const int qi[2] = {q0 + r, q0 + r + 8};
+  const uint32_t q_rows = sm.q + cw * 64 * 128;  // this warpgroup's 64 rows in each box
+
+  float o[64], s[64];
+#pragma unroll
+  for (int x = 0; x < 64; ++x) o[x] = 0.0f;
+  float m[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)};
+  float l[2] = {0.0f, 0.0f}, corr[2];
+  uint32_t p[32];
+
+  mbar_wait(sm.q_full(), 0);
+  for (int it = 0; it < n_kv; ++it) {
+    const int st = it % STAGES;
+    const uint32_t phase = (it / STAGES) & 1;
+    const int k0 = it * BK;
+
+    mbar_wait(sm.k_full(st), phase);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+      wgmma_ss(s, sw128(q_rows + off, 16, 1024), sw128(sm.k(st) + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+
+    // a mask only where the tile holds T, or, under the causal mask, reaches
+    // past this warpgroup's first row
+    const bool mask = k0 + BK > t_len || (causal && k0 + BK - 1 > q0 + 64 * cw);
+    softmax_tile(s, m, l, corr, k0, mask, qi, c, t_len, causal, scale_log2);
+    if (!__all_sync(0xffffffffu, corr[0] == 1.0f && corr[1] == 1.0f)) {
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * n + e] *= corr[e >> 1];
+    }
+    // the S fragment of kv columns 16kk..16kk+15 is the A fragment of k-step kk
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[4 * kk + e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+
+    mbar_wait(sm.v_full(st), phase);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+               sw128(sm.v(st) + kk * 2048, BOX_BYTES, 1024));
+    wgmma_commit();
+    wgmma_wait();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sm.empty(st));
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qi[i] >= s_len) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* row = out + ((static_cast<size_t>(b) * s_len + qi[i]) * h + head) * D + c;
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) =
+          __floats2bfloat162_rn(o[4 * n + 2 * i] / den, o[4 * n + 2 * i + 1] / den);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+attention_wgmma(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
+                int s_len, int t_len, int h, int hkv, int causal, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem sm;
+  sm.q = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms start on 1024 bytes
+  sm.bars = sm.q + (1 + 2 * STAGES) * TILE_BYTES;
+  const int b = blockIdx.x / h;
+  const int head = blockIdx.x % h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest query tiles first
+  const int kv_end = causal ? min(t_len, q0 + BQ) : t_len;
+  const int n_kv = (kv_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.q_full(), 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(sm.k_full(st), 1);
+      mbar_init(sm.v_full(st), 1);
+      mbar_init(sm.empty(st), 8);  // one arrive from each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 256)
+    consume(sm, out, b, head, h, q0, n_kv, s_len, t_len, causal, scale_log2);
+  else if (threadIdx.x == 256)
+    load_tiles(sm, &q_map, &k_map, &v_map, b, head, head / (h / hkv), q0, n_kv);
+}
+
+// cuTensorMapEncodeTiled is a driver function: fetched through the runtime,
+// so the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (batches, rows, heads, D) bf16 tensor as a 4-D map, innermost first, read
+// in boxes of 64 columns x 128 rows of one head; rows past the end read 0.
+int make_map(CUtensorMap* map, const void* ptr, int batches, int rows, int heads) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(heads) * D * 2;
+  const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batches)};
+  const cuuint64_t strides[3] = {D * 2, row_bytes, row_bytes * rows};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {BOX, 1, BK, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch(const void* q, const void* k, const void* v, void* out, int b, int s_len, int t_len,
+           int h, int hkv, int causal, float scale, cudaStream_t stream) {
+  const int q_tiles = (s_len + BQ - 1) / BQ;
+  if (q_tiles > 65535 || static_cast<long long>(b) * h > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap q_map, k_map, v_map;
+  int e = make_map(&q_map, q, b, s_len, h);
+  // with no kv rows the K and V maps describe q instead: the kv loop is
+  // empty, nothing reads them, and every row comes out 0
+  if (e == 0) e = t_len ? make_map(&k_map, k, b, t_len, hkv) : make_map(&k_map, q, b, s_len, h);
+  if (e == 0) e = t_len ? make_map(&v_map, v, b, t_len, hkv) : make_map(&v_map, q, b, s_len, h);
+  if (e != 0) return e;
+  const cudaError_t a = cudaFuncSetAttribute(
+      attention_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM_BYTES));
+  if (a != cudaSuccess) return static_cast<int>(a);
+  attention_wgmma<<<dim3(b * h, q_tiles), THREADS, SMEM_BYTES, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), s_len, t_len, h, hkv, causal,
+      scale * 1.4426950408889634f);  // log2(e): exp(x) = exp2(x log2 e)
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace hopper
 
 }  // namespace
 
 // q, out: (b, s, h, d); k, v: (b, t, hkv, d); row-major, all float32
-// (dtype 0) or all bfloat16 (dtype 1); d is 128 and h a multiple of hkv.
-// Returns the CUDA error code of the launch (0 = launched).
+// (dtype 0: the CUDA-core kernel) or all bfloat16 (dtype 1: the tensor-core
+// kernel; every pointer 16-byte aligned, as TMA asks); d is 128 and h a
+// multiple of hkv. Returns the CUDA error code of the launch (0 = launched).
 extern "C" int knn_flash_attention(const void* q, const void* k, const void* v, void* out,
                                    int dtype, int b, int s_len, int t_len, int h, int hkv,
                                    int d, int causal, float scale, void* stream) {
@@ -239,8 +682,8 @@ extern "C" int knn_flash_attention(const void* q, const void* k, const void* v, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d != D) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch<float>(q, k, v, out, b, s_len, t_len, h, hkv, causal, scale, st);
+    return simt::launch(q, k, v, out, b, s_len, t_len, h, hkv, causal, scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, b, s_len, t_len, h, hkv, causal, scale, st);
+    return hopper::launch(q, k, v, out, b, s_len, t_len, h, hkv, causal, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -378,9 +378,26 @@ def retrieval_topk(scores: torch.Tensor, k: int, *, use_kernel: bool = True):
 # K6 flash_attention
 # ----------------------------------------------------------------------
 
-_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's head dim (every model the port serves)
 ATTN_HEAD_DIM = 128
+# K6's two routes: dtype -> (kernel, dtype code of the C entry point)
+_ATTN_ROUTES = {torch.bfloat16: ("wgmma", 1), torch.float32: ("fma", 0)}
+
+
+def flash_attention_route(dtype: torch.dtype, head_dim: int) -> tuple[str, int]:
+    """The kernel K6 launches for this dtype, and its code in the C entry point.
+
+    bfloat16 goes to ``"wgmma"``, the tensor cores fed by TMA. float32 goes to
+    ``"fma"``, float32 FMAs on the CUDA cores: the tensor cores take float32
+    only as TF32, whose 10-bit mantissa breaks the float32 tolerance. Any other
+    dtype or a head dim other than 128 raises. Neither route gives way to the
+    other.
+    """
+    if dtype not in _ATTN_ROUTES:
+        raise TypeError(f"flash_attention: dtype {dtype}, expected float32 or bfloat16")
+    if head_dim != ATTN_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {head_dim}, the kernel takes {ATTN_HEAD_DIM}")
+    return _ATTN_ROUTES[dtype]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -393,11 +410,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     float32 or bfloat16 in, q's type out; scores, softmax statistics and the
     accumulator in float32, p rounded to v's type before the PV product.
 
-    CUDA kernel: ``csrc/flash_attention.cu`` (replaces ``flash_attention_pallas``).
-    One block per (b, h, 64-row query tile), 64-row kv tiles staged in shared
-    memory, the running max, sum and accumulator in registers; any S and T, no
-    padding; D = 128. Bound by operations: 4*B*H*S*T*D flops (half of it
-    under the causal mask) against the bf16 tensor-core rate.
+    CUDA kernel: ``csrc/flash_attention.cu`` (replaces ``flash_attention_pallas``),
+    one of two by dtype (``flash_attention_route``). bfloat16: one block per
+    (b, h, 128 query rows), a loader warp bringing Q and 128-row K and V tiles
+    by TMA into a three-stage ring, two warpgroups doing both products with
+    ``wgmma``. float32: one block per (b, h, 64 query rows), float32 FMAs on
+    64-row kv tiles. Both keep the running max, sum and accumulator in
+    registers; any S and T, no padding; D = 128. Bound by operations:
+    4*B*H*S*T*D flops (half of it under the causal mask) against the bf16
+    tensor-core rate.
     """
     if not (q.is_cuda and use_kernel):
         return ref.flash_attention_ref(q, k, v, causal=causal)
@@ -406,23 +427,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     if k.ndim != 4 or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
     t, hkv = k.shape[1], k.shape[2]
-    if q.dtype not in _ATTN_DTYPES:
-        raise TypeError(f"flash_attention: dtype {q.dtype}, expected float32 or bfloat16")
-    if d != ATTN_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {d}, the kernel takes {ATTN_HEAD_DIM}")
+    route, code = flash_attention_route(q.dtype, d)
     if hkv < 1 or h % hkv:
         raise ValueError(f"flash_attention: {h} query heads are not a multiple of {hkv} kv heads")
     _check("q", q, q.dtype, (b, s, h, d), dev)
     _check("k", k, q.dtype, (b, t, hkv, d), dev)
     _check("v", v, q.dtype, (b, t, hkv, d), dev)
+    if route == "wgmma" and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_attention: TMA reads q, k and v from 16-byte aligned addresses")
     out = torch.empty_like(q)
     if b and s and h:
         with torch.cuda.device(dev):
-            code = _fn("flash_attention", "knn_flash_attention")(
+            rc = _fn("flash_attention", "knn_flash_attention")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _ATTN_DTYPES[q.dtype], b, s, t, h, hkv, d, int(causal), d**-0.5, _stream(dev),
+                code, b, s, t, h, hkv, d, int(causal), d**-0.5, _stream(dev),
             )
-        _launched("flash_attention", code)
+        _launched("flash_attention", rc)
     return out
 
 

@@ -25,7 +25,7 @@ def dense_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def rmsnorm_init(d: int, dtype=torch.float32, device="cpu") -> dict:
+def rmsnorm_init(d: int, dtype=torch.float32, *, device) -> dict:
     return {"g": torch.ones((d,), dtype=dtype, device=device)}
 
 

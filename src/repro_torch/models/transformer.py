@@ -62,12 +62,12 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0, device="cuda") -> dict
 
     def layer():
         return {
-            "ln1": nn.rmsnorm_init(d, dt, dev),
+            "ln1": nn.rmsnorm_init(d, dt, device=dev),
             "wq": nn.dense_init(gen, d, cfg.n_heads * hd, bias=cfg.qkv_bias, dtype=dt),
             "wk": nn.dense_init(gen, d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, dtype=dt),
             "wv": nn.dense_init(gen, d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, dtype=dt),
             "wo": nn.dense_init(gen, cfg.n_heads * hd, d, dtype=dt),
-            "ln2": nn.rmsnorm_init(d, dt, dev),
+            "ln2": nn.rmsnorm_init(d, dt, device=dev),
             "w_gate": nn.dense_init(gen, d, cfg.d_ff, dtype=dt),
             "w_up": nn.dense_init(gen, d, cfg.d_ff, dtype=dt),
             "w_down": nn.dense_init(gen, cfg.d_ff, d, dtype=dt),
@@ -78,7 +78,7 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0, device="cuda") -> dict
     return {
         "embed": normal(gen, (cfg.vocab, d), emb_std, dt),
         "layers": layers,
-        "ln_f": nn.rmsnorm_init(d, dt, dev),
+        "ln_f": nn.rmsnorm_init(d, dt, device=dev),
         "unembed": normal(gen, (d, cfg.vocab), emb_std, dt),
     }
 

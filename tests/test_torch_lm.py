@@ -1,9 +1,12 @@
 """The port's LM serving path on the CPU, held against the JAX package: K6
 ``flash_attention`` (plain version) against the JAX oracle, the Pallas kernel
-in interpret mode and ``nn.chunked_attention``; RMSNorm and RoPE; forward,
-prefill (logits and cache) and teacher-forced decode of ``qwen2.5-smoke``
-with parameters carried across by ``params_from_numpy``; the token stream;
-and the serving driver's command line.
+in interpret mode and ``nn.chunked_attention``, also at the prefill's head
+layout in both dtypes, the choice of its kernel by dtype, and the bounds
+``chip_smoke.py`` holds the kernel to and the faults planted to test them
+(``tools/k6_planted_faults.py``); RMSNorm and
+RoPE; forward, prefill (logits and cache) and teacher-forced decode of
+``qwen2.5-smoke`` with parameters carried across by ``params_from_numpy``;
+the token stream; and the serving driver's command line.
 
 Inputs are made with numpy from a seed and fed to both sides. Tolerances:
 - attention in float32: rtol = atol = 2e-5 (the JAX kernel test's; online
@@ -13,6 +16,7 @@ Inputs are made with numpy from a seed and fed to both sides. Tolerances:
 - logits: rtol = atol = 1e-4 (two layers of float32 products in another
   order; the logits are O(1)).
 """
+import importlib.util
 import json
 import os
 import subprocess
@@ -100,12 +104,105 @@ def test_flash_attention_uneven_lengths(s, t, causal):
         np.testing.assert_allclose(got, np.asarray(pal), rtol=2e-5, atol=2e-5)
 
 
+# the prefill's head layout (qwen2.5-3b: 16 query heads over 2 kv heads, D =
+# 128) in both of the kernel's dtypes; float32 2e-5, bfloat16 3e-2 as above
+PREFILL_TOL = {np.float32: 2e-5, jnp.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16], ids=["float32", "bfloat16"])
+def test_flash_attention_prefill_heads_match_jax(dtype):
+    """S = T = 256 causal: the oracle and the Pallas kernel in interpret mode
+    (blocks of 128, the bf16 kernel's tile)."""
+    q, k, v = _qkv(1, 256, 256, 16, 2, 128, 7)
+    tdt = torch.float32 if dtype is np.float32 else torch.bfloat16
+    got = ops.flash_attention(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)), causal=True)
+    assert got.dtype == tdt
+    jq, jk, jv = (jnp.asarray(x, dtype) for x in (q, k, v))
+    tol = PREFILL_TOL[dtype]
+    for want in (jref.flash_attention_ref(jq, jk, jv, causal=True),
+                 jops.flash_attention(jq, jk, jv, causal=True, block_q=128, block_k=128)):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("s,t,causal", [(200, 200, True), (130, 260, False)])
+def test_flash_attention_prefill_heads_uneven_match_jax(s, t, causal, dtype):
+    """Lengths no 128-row tile divides, at the prefill's head layout, against
+    the oracle (the Pallas kernel's blocks must divide S and T)."""
+    q, k, v = _qkv(2, s, t, 16, 2, 128, s + t)
+    tdt = torch.float32 if dtype is np.float32 else torch.bfloat16
+    got = ops.flash_attention(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)), causal=causal)
+    want = jref.flash_attention_ref(*(jnp.asarray(x, dtype) for x in (q, k, v)), causal=causal)
+    tol = PREFILL_TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 128, ("wgmma", 1)),
+    (torch.float32, 128, ("fma", 0)),
+    (torch.float16, 128, TypeError),
+    (torch.float64, 128, TypeError),
+    (torch.bfloat16, 64, ValueError),
+    (torch.float32, 256, ValueError),
+])
+def test_flash_attention_route(dtype, d, route):
+    """bf16 goes to the tensor-core kernel, float32 to the CUDA-core one; any
+    other dtype or head dim raises rather than falling back."""
+    if isinstance(route, tuple):
+        assert ops.flash_attention_route(dtype, d) == route
+    else:
+        with pytest.raises(route):
+            ops.flash_attention_route(dtype, d)
+
+
 def test_flash_attention_masked_rows_give_zero():
     """A row with every column masked (no kv at all) gives 0, as the Pallas
     kernel's max(l, 1e-30) guard makes it."""
     q, k, v = _qkv(1, 5, 0, 2, 1, 8, 0)
     got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=False)
     assert tuple(got.shape) == (1, 5, 2, 8) and bool((got == 0).all())
+
+
+def _load(rel, name):
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, rel))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_attention_bounds():
+    """chip_smoke's K6 check: an output one bf16 ulp off its plain version
+    passes both bf16 bounds; one moved as by a skipped kv tile (0.004 on
+    outputs of ~0.03) passes ATTN_TOL and fails the two-ulp bound; float32
+    has ATTN_TOL alone."""
+    cs = _load("chip_smoke.py", "chip_smoke")
+    gen = torch.Generator().manual_seed(0)
+    want = (0.03 * torch.randn(64, 128, generator=gen)).to(torch.bfloat16)
+    one_ulp = (want.view(torch.int16) + 1).view(torch.bfloat16)
+    held = cs.attn_held(one_ulp, want)
+    assert held["tol"]["ok"] and held["ulps"]["ok"] and held["ulps"]["ratio"] <= 0.5
+    held = cs.attn_held((want.float() + 0.004).to(torch.bfloat16), want)
+    assert held["tol"]["ok"] and not held["ulps"]["ok"]
+    assert held["ulps"]["outside"] > 0 and held["ulps"]["ratio"] > 1
+    assert set(cs.attn_held(want.float(), want.float())) == {"tol"}
+
+
+@pytest.mark.parametrize("fault", ["intact", "drop_tile", "stale_stage"])
+def test_k6_planted_faults_apply_to_the_kernel(fault, tmp_path):
+    """Each planted fault of tools/k6_planted_faults.py finds its text in the
+    bf16 kernel once, and edits only the copy."""
+    pf = _load(os.path.join("tools", "k6_planted_faults.py"), "k6_planted_faults")
+    kernel = os.path.join(REPO, pf.KERNEL)
+    os.makedirs(os.path.dirname(tmp_path / pf.KERNEL))
+    original = open(kernel).read()
+    (tmp_path / pf.KERNEL).write_text(original)
+    pf.plant(str(tmp_path), pf.FAULTS[fault])
+    planted = (tmp_path / pf.KERNEL).read_text()
+    assert (planted == original) == (fault == "intact")
+    assert planted.count("planted fault") == (0 if fault == "intact" else 1)
+    assert open(kernel).read() == original
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +222,13 @@ def test_rmsnorm_and_rope_match_jax():
         got = nn.apply_rope(torch.from_numpy(xs), torch.from_numpy(pos), 10000.0)
         want = jnn.apply_rope(jnp.asarray(xs), jnp.asarray(pos), 10000.0)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+def test_rmsnorm_init_takes_its_device():
+    """No default device: a caller that forgets it is told, not put on the CPU."""
+    with pytest.raises(TypeError):
+        nn.rmsnorm_init(8)
+    assert nn.rmsnorm_init(8, device="cpu")["g"].device.type == "cpu"
 
 
 def _smoke_model(seed=0):

@@ -1,0 +1,162 @@
+"""Shows that chip_smoke.py's checks of K6's bf16 route catch a broken kernel.
+
+For the kernel as it is and for each planted fault, copies ``src/`` and
+``chip_smoke.py`` into a work directory, edits the copy's
+``csrc/flash_attention.cu`` there (the checkout's own sources are never
+touched), and runs in a process of its own, which builds the copy's kernels:
+
+- K6 at (4, 2048, 16/2, 128) and (1, 32768, 16/2, 128), causal, bf16, against
+  its plain version under chip_smoke's bounds (``attn_held``: ATTN_TOL, and
+  the two-ulp ATTN_ULPS_BF16); a ratio over 1 fails a bound;
+- the two-layer bf16 twin's prefill logits with K6 against those with the
+  plain attention, beside chip_smoke's LOGIT_TOL.
+
+Each fault touches only the heaviest query tile of each (b, h), its last 128
+rows, at the middle one of its kv tiles, so that 128 of those rows' ~2,000
+keys are wrong at 2,048 and 128 of ~32,700 at 32,768:
+
+- ``drop_tile``: the tile's scores are set to -inf, as if it were skipped;
+- ``stale_stage``: its K and V are read from the ring's previous stage (the
+  tile before it, or the one the loader is bringing in its place).
+
+Needs one CUDA card and ``nvcc``. Prints the card's name and power limit, then
+one JSON line per variant. Exits 1 if the kernel as it is fails a bound, or if
+a fault passes every bound at either length.
+
+    python3 tools/k6_planted_faults.py [--workdir DIR]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERNEL = os.path.join("src", "repro_torch", "kernels", "csrc", "flash_attention.cu")
+FAULT = "blockIdx.y == 0 && it == n_kv / 2"  # the heaviest query tile's middle kv tile
+
+# (text in the kernel, its replacement): each text must occur exactly once
+FAULTS = {
+    "intact": [],
+    "drop_tile": [(
+        "    // a mask only where the tile holds T",
+        f"    if ({FAULT})  // planted fault\n"
+        "      for (int x = 0; x < 64; ++x) s[x] = __int_as_float(0xff800000);\n"
+        "    // a mask only where the tile holds T",
+    )],
+    "stale_stage": [
+        ("    const int k0 = it * BK;\n",
+         "    const int k0 = it * BK;\n"
+         f"    const int fst = {FAULT} ? (st + STAGES - 1) % STAGES : st;  // planted fault\n"),
+        ("sw128(sm.k(st) + off, 16, 1024)", "sw128(sm.k(fst) + off, 16, 1024)"),
+        ("sw128(sm.v(st) + kk * 2048, BOX_BYTES, 1024)",
+         "sw128(sm.v(fst) + kk * 2048, BOX_BYTES, 1024)"),
+    ],
+}
+SHAPES = ((4, 2048), (1, 32768))  # (batch, length); 16 query heads, 2 kv heads, D = 128
+
+
+def plant(copy: str, edits: list[tuple[str, str]]) -> None:
+    path = os.path.join(copy, KERNEL)
+    with open(path) as f:
+        text = f.read()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise SystemExit(f"k6_planted_faults: {old!r} occurs {text.count(old)} times "
+                             f"in {KERNEL}, not once")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def measure() -> dict:
+    """In a copy: K6 at SHAPES and the bf16 twin's prefill logits."""
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.configs import qwen2_5_3b
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as tr
+
+    dev = torch.device("cuda", 0)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(17)
+    attention = []
+    for b, s in SHAPES:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(bf16)
+                   for shape in ((b, s, 16, 128), (b, s, 2, 128), (b, s, 2, 128)))
+        got = ops.flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        attention.append({"B": b, "S": s, "max_abs_err": cs.max_abs_err(got, want),
+                          "max_abs_err_last_tile": cs.max_abs_err(got[:, -128:], want[:, -128:]),
+                          **cs.attn_held(got, want)})
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    model, params, prompts = cs.twin_model(qwen2_5_3b.make_config(), bf16, dev)
+    l_k, _ = tr.prefill(params, prompts, model, 2048 + 16, device=dev)
+    l_p, _ = tr.prefill(params, prompts, model, 2048 + 16, device=dev, use_kernel=False)
+    atol, rtol = cs.LOGIT_TOL[bf16]
+    twin = {"logits_max_abs_err": cs.max_abs_err(l_k, l_p), "atol": atol, "rtol": rtol,
+            "ok": bool(((l_k.float() - l_p.float()).abs()
+                        <= atol + rtol * l_p.float().abs()).all())}
+    return {"attention": attention, "twin_bfloat16": twin}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workdir", help="where the copies go (default: a new temporary directory)")
+    ap.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.measure:
+        print(json.dumps(measure()))
+        return 0
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("k6_planted_faults: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    work = args.workdir or tempfile.mkdtemp(prefix="k6_faults_")
+    bad = []
+    try:
+        for name, edits in FAULTS.items():
+            copy = os.path.join(work, name)
+            shutil.rmtree(copy, ignore_errors=True)
+            shutil.copytree(os.path.join(ROOT, "src"), os.path.join(copy, "src"),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            for rel in ("chip_smoke.py", os.path.join("tools", "k6_planted_faults.py")):
+                os.makedirs(os.path.dirname(os.path.join(copy, rel)), exist_ok=True)
+                shutil.copy(os.path.join(ROOT, rel), os.path.join(copy, rel))
+            plant(copy, edits)
+            script = os.path.join(copy, "tools", "k6_planted_faults.py")
+            run = subprocess.run([sys.executable, script, "--measure"], capture_output=True,
+                                 text=True, timeout=600)
+            if run.returncode != 0:
+                print(run.stderr[-4000:], file=sys.stderr)
+                print(json.dumps({"variant": name, "returncode": run.returncode}), flush=True)
+                bad.append(name)
+                continue
+            reading = json.loads(run.stdout.strip().splitlines()[-1])
+            print(json.dumps({"variant": name, **reading}), flush=True)
+            passed = [all(a[bound]["ok"] for bound in ("tol", "ulps"))
+                      for a in reading["attention"]]
+            if (not all(passed)) if name == "intact" else any(passed):
+                bad.append(name)
+    finally:
+        if not args.workdir:
+            shutil.rmtree(work, ignore_errors=True)
+    if bad:
+        print(f"k6_planted_faults: not as expected: {bad}", file=sys.stderr)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
