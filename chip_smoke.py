@@ -6,21 +6,30 @@
 What it does, in order (any failure exits non-zero; there is no CPU path):
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. builds the six CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+2. builds the six CUDA sources from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` each, all at once;
 3. holds each kernel against its plain PyTorch version on the card, exact
    equality, at the full-width shapes of the ``knn-index-usa`` configuration
    (2^24-vertex tables, level batch 131072, tau 32, k 20), and times both;
    then once more at the shapes the flushes below give them (hundreds of
-   source columns, hundreds of candidates or neighbours per row); ``minplus``
-   at 4096^3, at a shape whose edges are not multiples of its tile, with
-   +inf rows and columns and one NaN, and in float16 / bfloat16;
+   source columns, hundreds of candidates or neighbours per row); K2 as a
+   tile (its repair-round form), in place as one level of its one-launch
+   sweep, and as one launch for a whole synthetic sweep of 200 levels
+   (1-20,000 rows, 1-200 neighbours) at n = 2^24, against the plain version
+   level by level;
+   ``minplus`` at 4096^3, at a shape whose edges are not multiples of its
+   tile, with +inf rows and columns and one NaN, on block-sparse operands
+   whose all-+inf slices face a -inf or a NaN (its pair count held to the
+   plain slice bits' count), and in float16 / bfloat16; ``cuobjdump`` reads
+   K2's and K4's registers, spills and LDGSTS counts;
 4. ``certify``: the BN-Graph certificate of a 141 x 141 road network
    (n = 19,881, the largest grid under ``knn_build``'s n <= 20,000 gate)
    with the ``minplus`` kernel, its launch count set to 0 just before and
    read just after; the kernel's square against the plain version's on 512
-   sampled rows, ``certificate(..., use_kernel=False)`` giving the same dict,
-   and a corrupted edge weight failing the relaxation check;
+   sampled rows, its walked (tile, t slice) pairs against the plain slice
+   bits' count, its time beside the dense floor and the input's own bound,
+   ``certificate(..., use_kernel=False)`` giving the same dict, and a
+   corrupted edge weight failing the relaxation check;
 5. ``cli``: the command-line entry points in subprocesses at grid 141:
    ``knn_build --verify --out`` (tables verified, BN-Graph certified with the
    kernel), ``serve --artifact`` under random traffic with one injected flush
@@ -31,9 +40,12 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    ``query_batch`` -> three ``flush_updates`` of mixed insert/delete/move
    traffic, checking the tables against a plain-version build, a Dijkstra
    sample, a direct table read and a rebuild on the final object set, with
-   the kernels' launch counts set to 0 just before and read just after. A
-   twin engine that runs only the plain versions takes the same traffic, and
-   after every flush the two engines' tables must be equal bit for bit;
+   the kernels' launch counts set to 0 just before and read just after (the
+   build must be one K2 launch a sweep). A twin engine that runs only the
+   plain versions takes the same traffic, and after every flush the two
+   engines' tables must be equal bit for bit. Each sweep is timed alone, and
+   a fourth flush runs under ``torch.profiler`` (and CUDA events around each
+   kernel call) for K1-K3's own device time at the flush's shapes;
 7. ``durability`` on the main path's engine: ``save`` -> ``load_engine``
    (tables equal), a journaled flush, a second batch killed mid-repair,
    recovery from the artifact plus the journal, held equal to an uncrashed
@@ -92,6 +104,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
+# FP32 lanes of an H100 SXM: 132 SMs x 128
+SM_LANES = 132 * 128
 # K6 against its plain version: |kernel - plain| <= atol + rtol * |plain|.
 # float32: the two sum p*v and p in another order (tiles of 64 against blocks
 # of 1024). bfloat16: the output is rounded to bfloat16 on each side, one ulp
@@ -267,7 +281,8 @@ def check_topk_merge(cfg, dev, results) -> None:
     del wide_ids, wide_d, wide, wide_w
     ms = cuda_ms(lambda: ops.topk_merge(ids, d, k))
     plain_ms = cuda_ms(lambda: ref.topk_merge_ref(ids, d, k))
-    bms, by = bound(b * c * 8 + b * k * 8, 2.0 * b * k * c)
+    # operations: one compare a candidate
+    bms, by = bound(b * c * 8 + b * k * 8, 1.0 * b * c)
     results["topk_merge"] = {
         "shape": {"B": b, "C": c, "k": k}, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
@@ -287,56 +302,141 @@ def check_sweep_merge(cfg, dev, results) -> None:
 
     want_ids, want_d = ref.sweep_merge_ref(nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d, k)
     # tile form: tables only read
-    tile_ids, tile_d = ops.sweep_merge(nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d, k, inplace=False)
+    tile_ids, tile_d = ops.sweep_merge(nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d, k)
     torch.cuda.synchronize()
     require(torch.equal(tile_ids, want_ids) and torch.equal(tile_d, want_d),
             "sweep_merge (tile form) differs from its plain version")
     err = max_abs_err(tile_d, want_d)
-    # in place: rows verts get the merged rows, every other row (the dummy row
-    # included, which the padded rows aim at) keeps its content
+    # in place, as one level of the one-launch sweep: rows verts get the
+    # merged rows, every other row (the dummy row included, which the padded
+    # rows aim at) keeps its content
     exp_ids, exp_d = vk_ids.clone(), vk_d.clone()
     live = verts != n
     exp_ids[verts[live].long()] = want_ids[live]
     exp_d[verts[live].long()] = want_d[live]
     run_ids, run_d = vk_ids.clone(), vk_d.clone()
-    ops.sweep_merge(nbr, verts, w, ex_ids, ex_d, run_ids, run_d, k, inplace=True)
+    one_level = torch.tensor([[0, 0, s]], dtype=torch.int32, device=dev)
+    ops.sweep_merge_levels([(nbr, w, verts)], one_level, ex_ids, ex_d, run_ids, run_d, k)
     torch.cuda.synchronize()
     require(torch.equal(run_ids, exp_ids) and torch.equal(run_d, exp_d),
-            "sweep_merge (in place) differs from its plain version")
+            "sweep_merge_levels (one level, in place) differs from its plain version")
     require(bool((run_ids[n] == -1).all()) and bool(torch.isinf(run_d[n]).all()),
-            "sweep_merge wrote the dummy row")
+            "sweep_merge_levels wrote the dummy row")
     del exp_ids, exp_d
-    # neighbours walked in groups (forced by a small shared-memory allowance)
+    # neighbours walked in groups (forced: 3 neighbours a group in place of 32)
     sub = slice(0, 8192)
     grp = ops.sweep_merge(nbr[sub], verts[sub], w[sub], ex_ids, ex_d, vk_ids, vk_d, k,
-                          inplace=False, max_smem_bytes=2048)
+                          t_group=3)
     require(torch.equal(grp[0], want_ids[sub]) and torch.equal(grp[1], want_d[sub]),
             "sweep_merge (grouped neighbours) differs from its plain version")
     # wide row sets, as the repair rounds see (tables as their own extras): T = 512
-    # and T = 677 (the combined BNS width of a 384 x 384 network) need 82 KB and
-    # 108 KB of shared memory, over the 48 KB a kernel gets unasked
+    # and T = 677 (the combined BNS width of a 384 x 384 network), walked in
+    # groups of 37 neighbours (a warp's 768 candidate registers)
     for t_wide in (512, 677):
         nbr2_h, verts2_h, w2_h = sweep_schedule(rng, n, 2048, t_wide, 16)
         nbr2, verts2, w2 = (torch.from_numpy(x).to(dev) for x in (nbr2_h, verts2_h, w2_h))
-        wide = ops.sweep_merge(nbr2, verts2, w2, vk_ids, vk_d, vk_ids, vk_d, k, inplace=False)
+        wide = ops.sweep_merge(nbr2, verts2, w2, vk_ids, vk_d, vk_ids, vk_d, k)
         wide_w = ref.sweep_merge_ref(nbr2, verts2, w2, vk_ids, vk_d, vk_ids, vk_d, k)
         torch.cuda.synchronize()
         require(torch.equal(wide[0], wide_w[0]) and torch.equal(wide[1], wide_w[1]),
                 f"sweep_merge (T = {t_wide}) differs from its plain version")
     del nbr2, verts2, w2, wide, wide_w
 
-    ms = cuda_ms(lambda: ops.sweep_merge(
-        nbr, verts, w, ex_ids, ex_d, run_ids, run_d, k, inplace=True))
+    ms = cuda_ms(lambda: ops.sweep_merge(nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d, k))
     plain_ms = cuda_ms(lambda: ref.sweep_merge_ref(
         nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d, k), reps=5)
+    # the same rows in place, one level of the one-launch sweep (idempotent:
+    # its neighbours are never its targets)
+    in_place_ms = cuda_ms(lambda: ops.sweep_merge_levels(
+        [(nbr, w, verts)], one_level, ex_ids, ex_d, run_ids, run_d, k))
     distinct = int(torch.unique(nbr[nbr >= 0]).numel())
-    rows_live = int(live.sum())
-    nbytes = s * t * 8 + s * 4 + distinct * k * 8 + rows_live * k * 8 + rows_live * k * 8
-    bms, by = bound(nbytes, 2.0 * rows_live * k * (t * k + k))
+    slots = int((nbr >= 0).sum())
+    # bytes: 8 a neighbour slot and 4 a row of schedule, each distinct
+    # neighbour row and each row's extras read once, the (S, k) tile written;
+    # operations: one add and one min a candidate (T*k gathered, E extras)
+    nbytes = slots * 8 + s * 4 + distinct * k * 8 + s * k * 8 + s * k * 8
+    bms, by = bound(nbytes, 2.0 * (slots * k + s * k))
     results["sweep_merge"] = {
-        "shape": {"n": n, "S": s, "T": t, "k": k, "E": k}, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-        "library_ms": None,
+        "shape": {"n": n, "S": s, "T": t, "k": k, "E": k, "neighbour_slots": slots},
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": None, "in_place_one_level_ms": in_place_ms,
+        "sass": kernel_sass("sweep_merge", "sweep_merge_kernel"),
+    }
+    del nbr, verts, w, run_ids, run_d, tile_ids, tile_d, want_ids, want_d, vk_ids, vk_d
+    torch.cuda.empty_cache()
+    check_sweep_levels(cfg, dev, results, ex_ids, ex_d, rng)
+
+
+def synthetic_levels(rng, n: int, n_levels: int):
+    """A sweep of ``n_levels`` levels over vertices of 0..n-1: sizes
+    log-uniform over 1-20,000 rows, widths from 1 to 200 neighbours (buckets
+    4 to 256, the widest walked in groups), neighbours drawn from the level
+    before (half) and from any earlier level, 20% of the slots empty, integer
+    weights 1-15."""
+    sizes = np.exp(rng.uniform(0, np.log(20000), size=n_levels)).astype(np.int64) + 1
+    perm = rng.permutation(n)[: int(sizes.sum())].astype(np.int32)
+    widths = (1, 2, 3, 4, 6, 8, 12, 16, 20, 24, 32, 37, 48, 64, 100, 200)
+    levels, at, prev, done = [], 0, None, []
+    for size in sizes:
+        verts = perm[at : at + size]
+        at += size
+        width = int(rng.choice(widths))
+        nbr = np.full((size, width), -1, np.int32)
+        if prev is not None:
+            pool = np.concatenate(done)
+            pick = np.where(rng.random((size, width)) < 0.5, rng.choice(prev, size=(size, width)),
+                            rng.choice(pool, size=(size, width)))
+            nbr = np.where(rng.random((size, width)) < 0.8, pick, -1).astype(np.int32)
+        w = np.where(nbr >= 0, rng.integers(1, 16, size=nbr.shape), np.inf).astype(np.float32)
+        # each row's neighbours first, as pack_sweep takes them
+        first = np.argsort(nbr < 0, axis=1, kind="stable")
+        levels.append((verts, np.take_along_axis(nbr, first, 1), np.take_along_axis(w, first, 1)))
+        prev = verts
+        done.append(verts)
+    return levels
+
+
+def check_sweep_levels(cfg, dev, results, ex_ids, ex_d, rng) -> None:
+    """K2's one-launch sweep (``ops.sweep_merge_levels``, through
+    ``construct.run_sweep``) against the plain version walked level by level,
+    on a synthetic many-level sweep at the ``knn-index-usa`` table size."""
+    from repro_torch.core import construct
+    from repro_torch.kernels import ops
+
+    n, k = cfg.n_vertices, cfg.k
+    levels = synthetic_levels(rng, n, 200)
+    plan = construct.pack_sweep(n, "up", levels, device=dev)
+    rows = sum(v.size for v, _, _ in levels)
+    slots = sum(int((nb >= 0).sum()) for _, nb, _ in levels)
+    del levels
+    distinct = int(torch.unique(torch.cat([b.nbr[b.nbr >= 0] for b in plan.buckets])).numel())
+    got = construct.run_sweep(plan, ex_ids, ex_d, k)
+    want = construct.run_sweep(plan, ex_ids, ex_d, k, use_kernel=False)
+    torch.cuda.synchronize()
+    differ = int(((got[0] != want[0]) | (got[1] != want[1])).any(dim=1).sum())
+    require(differ == 0, f"sweep_merge_levels differs from the plain version walked level by "
+                         f"level in {differ} of {rows} rows")
+    require(bool((got[0][:n] >= 0).any()), "the synthetic sweep wrote nothing")
+    err = max_abs_err(got[1], want[1])
+    del want
+    buckets = [(b.nbr, b.w, b.verts) for b in plan.buckets]
+    grid = ops.sweep_merge_levels(buckets, plan.levels, ex_ids, ex_d, *got, k)
+    ms = cuda_ms(lambda: ops.sweep_merge_levels(buckets, plan.levels, ex_ids, ex_d, *got, k),
+                 reps=3)
+    plain_ms = cuda_ms(lambda: ops.sweep_merge_levels(buckets, plan.levels, ex_ids, ex_d, *got,
+                                                      k, use_kernel=False), reps=1)
+    # bytes: the schedule (8 bytes a neighbour slot, not the buckets' padded
+    # cells, and 4 a row), each written row's extras read and its k entries
+    # written, each distinct neighbour row read; operations: one add and one
+    # min a candidate (k a neighbour slot, E = k extras a row)
+    nbytes = slots * 8 + rows * 4 + 2 * rows * k * 8 + distinct * k * 8
+    bms, by = bound(nbytes, 2.0 * (slots * k + rows * k))
+    results["sweep_merge_levels"] = {
+        "shape": {"n": n, "levels": plan.num_levels, "rows": rows, "neighbour_slots": slots,
+                  "buckets": list(plan.bucket_signature()), "k": k, "E": k},
+        "grid_blocks": grid, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "sass": kernel_sass("sweep_merge", "sweep_levels_kernel"),
     }
 
 
@@ -422,7 +522,7 @@ def check_minplus(cfg, dev, results) -> None:
         b[torch.rand((kd, n), generator=gen, device=dev) < inf_frac] = float("inf")
         return a, b
 
-    # edges that are not multiples of the 128 x 128 tile or the 8-deep stage
+    # edges that are not multiples of the 128 x 128 tile or the 32-deep slice
     a, b = case(1000, 1537, 3001)
     require(torch.equal(ops.minplus_matmul(a, b), ref.minplus_matmul_ref(a, b)),
             "minplus differs from its plain version at (1000, 1537, 3001)")
@@ -438,6 +538,22 @@ def check_minplus(cfg, dev, results) -> None:
     col7 = torch.cat([got[:10, 7], got[11:, 7]])  # row 10 is NaN throughout
     require(bool(torch.isinf(got[5]).all()) and bool(torch.isinf(col7).all()),
             "minplus: an all-+inf row or column came out finite")
+    # block-sparse operands with the traps of the slice predicate: an all-+inf
+    # A slice facing a B slice with one -inf (+inf + -inf is NaN), another
+    # facing one NaN, an A slice with a single finite entry, ragged edges; the
+    # pairs the kernel walks must be those the plain slice bits give
+    for m, kd, n in ((1000, 1537, 3001), (300, 97, 270)):
+        a, b = block_sparse(gen, dev, m, kd, n)
+        pairs = torch.zeros(1, dtype=torch.int64, device=dev)
+        got, want = ops.minplus_matmul(a, b, pairs=pairs), ref.minplus_matmul_ref(a, b)
+        differ = int((torch.isnan(got) != torch.isnan(want)).sum()
+                     + ((got != want) & ~torch.isnan(got) & ~torch.isnan(want)).sum())
+        require(differ == 0, f"minplus differs from its plain version on the block-sparse "
+                             f"case ({m}, {kd}, {n}) in {differ} entries")
+        require(bool(torch.isnan(want).any()) and bool((want == float("-inf")).any()),
+                "the block-sparse case lost its NaN or -inf trap")
+        live = int(ref.minplus_live_counts(*ref.minplus_slice_bits(a, b)).sum())
+        require(int(pairs) == live, f"minplus walked {int(pairs)} pairs, the slice bits give {live}")
     # narrow types: widened to float32 and narrowed back, as the plain version
     for dt in (torch.float16, torch.bfloat16):
         h, hb = (x.to(dt) for x in case(300, 257, 700))
@@ -455,10 +571,52 @@ def check_minplus(cfg, dev, results) -> None:
     ms = cuda_ms(lambda: ops.minplus_matmul(a, b))
     plain_ms = cuda_ms(lambda: ref.minplus_matmul_ref(a, b), reps=3)
     bms, by = minplus_bound(m, kd, n)
+    clocks = sm_clocks()
     results["minplus"] = {
         "shape": {"M": m, "K": kd, "N": n}, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "dense_floor_ms": dense_floor_ms(m * kd * n, clocks["max_mhz"]), "sm_clock": clocks,
+        "sass": kernel_sass("minplus", "minplus_kernel"),
     }
+
+
+def block_sparse(gen, dev, m: int, kd: int, n: int):
+    """+inf almost everywhere, a third of the 128 x 32 (A) and 32 x 128 (B)
+    slices holding finite entries, and the traps the slice predicate must
+    meet (see check_minplus)."""
+    from repro_torch.kernels import ref
+
+    tile, depth = ref.MINPLUS_TILE, ref.MINPLUS_DEPTH
+
+    def side(rows, cols, sr, sc):
+        x = torch.randint(0, 64, (rows, cols), generator=gen, device=dev).to(torch.float32)
+        x[torch.rand((rows, cols), generator=gen, device=dev) < 0.7] = float("inf")
+        keep = torch.rand((-(-rows // sr), -(-cols // sc)), generator=gen, device=dev) < 0.33
+        keep = keep.repeat_interleave(sr, 0)[:rows].repeat_interleave(sc, 1)[:, :cols]
+        return torch.where(keep, x, float("inf"))
+
+    a, b = side(m, kd, tile, depth), side(kd, n, depth, tile)
+    a[:tile, depth : 2 * depth] = float("inf")
+    b[depth + 1, 3] = float("-inf")
+    a[tile : 2 * tile, 2 * depth : 3 * depth] = float("inf")
+    b[2 * depth + 2, tile + 5] = float("nan")
+    a[2 * tile : 3 * tile, :depth] = float("inf")
+    a[2 * tile + 7, 3] = 1.5
+    return a, b
+
+
+def sm_clocks() -> dict:
+    """The SM clock now and its maximum, in MHz, as nvidia-smi reads them."""
+    now, top = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0].split(",")
+    return {"now_mhz": float(now), "max_mhz": float(top)}
+
+
+def dense_floor_ms(terms: float, mhz: float) -> float:
+    """K4's floor on the CUDA cores: each (i, t, j) term is two issue slots
+    (an add and a min, which do not fuse), 16,896 lanes at ``mhz``."""
+    return 2.0 * terms / (SM_LANES * mhz * 1e6) * 1e3
 
 
 # ----------------------------------------------------------------------
@@ -499,7 +657,18 @@ def certify(grid: int, dev, results) -> dict:
     del a_h
     n = bn.n
     ms = cuda_ms(lambda: ops.minplus_matmul(a, a), reps=3)
-    sq = ops.minplus_matmul(a, a)
+    clocks = sm_clocks()
+    pairs = torch.zeros(1, dtype=torch.int64, device=dev)
+    sq = ops.minplus_matmul(a, a, pairs=pairs)
+    counts = ref.minplus_live_counts(*ref.minplus_slice_bits(a, a))
+    require(int(pairs) == int(counts.sum()),
+            f"the certificate's square walked {int(pairs)} pairs, the slice bits give "
+            f"{int(counts.sum())}")
+    # what this input needs: A (= B) read once and C written once, and one add
+    # and one min for each term finite on both sides
+    fin = torch.isfinite(a)
+    finite_terms = int((fin.sum(0).double() * fin.sum(1).double()).sum())
+    del fin
     # the plain version on 512 sampled rows (the whole square takes it ~40 s
     # on an H100 80GB HBM3 at 700 W, and the plain-version certificate below
     # computes that once anyway)
@@ -533,8 +702,15 @@ def certify(grid: int, dev, results) -> dict:
     out["corrupted_relaxation_stable"] = stable
     torch.cuda.empty_cache()
 
-    bms, by = minplus_bound(n, n, n)
-    out["kernel"] = {"shape": {"M": n, "K": n, "N": n}, "ms": ms, "bound_ms": bms, "bound_by": by}
+    bms, by = bound(2 * n * n * 4, 2.0 * finite_terms)
+    n_t = -(-n // ref.MINPLUS_DEPTH)
+    out["kernel"] = {
+        "shape": {"M": n, "K": n, "N": n}, "ms": ms, "bound_ms": bms, "bound_by": by,
+        "finite_terms": finite_terms, "pairs_walked": int(pairs),
+        "pairs_total": counts.numel() * n_t, "pairs_live_share": int(pairs) / (counts.numel() * n_t),
+        "pairs_max_per_tile": int(counts.max()), "t_slices": n_t,
+        "dense_floor_ms": dense_floor_ms(float(n) ** 3, clocks["max_mhz"]), "sm_clock": clocks,
+    }
     return out
 
 
@@ -641,7 +817,7 @@ def stage_traffic(knn, engine, mset: set, rng, n_random: int, n_deletes: int, n_
 
 def main_path(grid: int, k: int, dev) -> tuple[dict, dict]:
     from repro_torch import knn
-    from repro_torch.core.construct import build_knn_tables, prepare_sweep
+    from repro_torch.core.construct import build_knn_tables, object_extras, prepare_sweep, run_sweep
     from repro_torch.core.index import index_from_lists, KNNIndex
     from repro_torch.core.reference import dijkstra_knn
     from repro_torch.kernels import ops
@@ -673,7 +849,18 @@ def main_path(grid: int, k: int, dev) -> tuple[dict, dict]:
     out.update(build_host_s=tb - ta, build_device_s=tc - tb, build_device_plain_s=td - tc,
                levels_up=plans[0].num_levels, levels_down=plans[1].num_levels,
                occupancy_up=plans[0].occupancy, occupancy_down=plans[1].occupancy)
-    del plans
+    # each sweep alone, one launch each: device time (CUDA events, warm) and
+    # its levels, so the time a level costs (a grid barrier and its rows)
+    ex_ids, ex_d = object_extras(bn.n, objects, k, device=dev)
+    up = run_sweep(plans[0], ex_ids, ex_d, k)
+    out["sweeps"] = {}
+    for plan, extras in ((plans[0], (ex_ids, ex_d)), (plans[1], up)):
+        ms = cuda_ms(lambda: run_sweep(plan, *extras, k), reps=3)
+        out["sweeps"][plan.direction] = {
+            "ms": ms, "levels": plan.num_levels, "rows": plan.n,
+            "us_per_level": ms * 1e3 / plan.num_levels,
+            "levels_under_1k_rows": sum(size < 1000 for size in plan.level_sizes)}
+    del plans, ex_ids, ex_d, up
 
     ops.reset_launches()  # ---- the main path's launches are counted from here ----
     t2 = time.perf_counter()
@@ -681,6 +868,9 @@ def main_path(grid: int, k: int, dev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     out["build_engine_s"] = time.perf_counter() - t2
     out["launches_build"] = ops.launches()
+    require(out["launches_build"]["sweep_merge_levels"] == 2
+            and out["launches_build"]["sweep_merge"] == 0,
+            f"the build did not run as one K2 launch per sweep: {out['launches_build']}")
     require(torch.equal(split[0], engine.tables[0]) and torch.equal(split[1], engine.tables[1]),
             "two kernel builds differ")
     require(torch.equal(plain[0], engine.tables[0]) and torch.equal(plain[1], engine.tables[1]),
@@ -772,23 +962,82 @@ def main_path(grid: int, k: int, dev) -> tuple[dict, dict]:
             "epoch-pinned query changed across flushes")
     now_ids, _ = engine.query_batch(pin_us)
     require(not torch.equal(now_ids, pin_ids), "flushes changed nothing the pinned queries see")
-    path_kernels = ("topk_merge", "sweep_merge", "frontier_relax")
+    path_kernels = ("topk_merge", "sweep_merge", "sweep_merge_levels", "frontier_relax")
     require(all(out["launches"][name] > 0 for name in path_kernels),
             f"a kernel was not launched on the main path: {out['launches']}")
-    # host-clock seconds of each phase over the launches it made, in ms: what
-    # a launch costs the path at the shapes the path gives it, host work and
-    # launch overhead included (an upper bound on the kernel's own time)
-    build_launches = out["launches_build"]["sweep_merge"]
+    # host-clock seconds of each flush phase over the launches it made, in ms:
+    # what a launch costs the path at the shapes the path gives it, host work
+    # and launch overhead included (an upper bound on the kernel's own time;
+    # the kernels' own device time is the profiled flush below)
     phase_s = {key: sum(f[key] for f in flushes)
                for key in ("t_frontier_s", "t_purge_merge_s", "t_repair_s")}
     out["ms_per_launch"] = {
-        "sweep_merge_build": out["build_device_s"] * 1e3 / build_launches,
-        "sweep_merge_repair": phase_s["t_repair_s"] * 1e3
-        / max(1, out["launches"]["sweep_merge"] - build_launches),
+        "sweep_merge_repair": phase_s["t_repair_s"] * 1e3 / max(1, out["launches"]["sweep_merge"]),
         "frontier_relax": phase_s["t_frontier_s"] * 1e3 / out["launches"]["frontier_relax"],
         "topk_merge": phase_s["t_purge_merge_s"] * 1e3 / out["launches"]["topk_merge"],
     }
+    out["profiled_flush"] = profiled_flush(knn, engine, mset, rng)
     return out, {"bn": bn, "engine": engine, "mset": mset}
+
+
+def profiled_flush(knn, engine, mset: set, rng) -> dict:
+    """One more flush of the same traffic under ``torch.profiler``, with a CUDA
+    event pair around every kernel wrapper call as well: K1-K3's own device
+    time at the shapes a flush gives them. The profiler reads kernels by
+    name; the events (which also hold the wrapper's few tensor ops) stand in
+    where the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    names = ("topk_merge", "sweep_merge", "frontier_relax")
+    events = {name: [] for name in names}
+    wrapped = {name: getattr(ops, name) for name in names}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            result = wrapped[name](*args, **kwargs)
+            e1.record()
+            events[name].append((e0, e1))
+            return result
+        return call
+
+    stage_traffic(knn, engine, mset, rng, 300, 180, 180)
+    torch.cuda.synchronize()
+    for name in names:
+        setattr(ops, name, timed(name))
+    try:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = engine.flush_updates()
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        for name in names:
+            setattr(ops, name, wrapped[name])
+    out: dict = {"seconds": seconds, "rounds": {key: res[key] for key in res
+                                                if key.endswith("rounds")}}
+    busy_us = 0.0
+    for row in prof.key_averages():
+        # a kernel's row: device_type CUDA, its time as self device time
+        if "CUDA" not in str(row.device_type):
+            continue
+        dev_us = max(row.self_device_time_total, row.device_time_total)
+        busy_us += dev_us
+        for name, kernel in (("topk_merge", "topk_merge_kernel"),
+                             ("sweep_merge", "sweep_merge_kernel"),
+                             ("frontier_relax", "frontier_relax_kernel")):
+            if kernel in row.key:
+                out.setdefault(name, {}).update(profiler_ms=dev_us / 1e3, profiler_calls=row.count)
+    for name in names:
+        ms = [e0.elapsed_time(e1) for e0, e1 in events[name]]
+        out.setdefault(name, {}).update(
+            calls=len(ms), event_ms_total=sum(ms),
+            event_ms_per_call=statistics.median(ms) if ms else None)
+    out["device_busy_ms"] = busy_us / 1e3
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -1027,7 +1276,7 @@ def kernel_sass(name: str, function: str) -> dict | None:
                        map(int, found.groups())))
     body = next((part for part in sass.split("Function : ")[1:]
                  if function in part.split("\n")[0]), "")
-    for op in ("HGMMA", "UTMALDG", "LDL", "STL", "MUFU.EX2"):
+    for op in ("HGMMA", "UTMALDG", "LDGSTS", "FMNMX", "FADD", "REDUX", "LDL", "STL", "MUFU.EX2"):
         out[op] = len(re.findall(r"\b" + re.escape(op) + r"[.\s]", body))
     return out
 
@@ -1276,7 +1525,8 @@ def main() -> int:
         check(cfg, dev, results)
         torch.cuda.empty_cache()
         name = check.__name__[len("check_"):]
-        say({"phase": "kernel_check", "kernel": name, "config": cfg.name, **results[name]})
+        for entry in (name, "sweep_merge_levels") if name == "sweep_merge" else (name,):
+            say({"phase": "kernel_check", "kernel": entry, "config": cfg.name, **results[entry]})
     check_retrieval_topk(dev, results)
     torch.cuda.empty_cache()
     say({"phase": "kernel_check", "kernel": "retrieval_topk", "config": "xdeepfm",
@@ -1305,7 +1555,9 @@ def main() -> int:
     say(lm_out)
     say({"phase": "total", "seconds": time.perf_counter() - t_start})
 
-    # which run each kernel's launch count covers: the main path runs K1-K3,
+    # which run each kernel's launch count covers: the main path runs K1-K3
+    # (K2 as sweep_merge_levels in the build, one launch a sweep, and as
+    # sweep_merge in the flushes' repair rounds),
     # the certificate minplus, the recsys retrieval retrieval_topk, the LM
     # prefill of serve.py flash_attention (counted by serve.py from 0
     # just before its timed run). The numbers beside each count are its
@@ -1315,13 +1567,14 @@ def main() -> int:
     replaces = {
         "topk_merge": "src/repro/kernels/topk_merge.py:59",
         "sweep_merge": "src/repro/kernels/sweep_merge.py:112",
+        "sweep_merge_levels": "src/repro/kernels/sweep_merge.py:112",
         "frontier_relax": "src/repro/kernels/frontier_relax.py:70",
         "minplus": "src/repro/kernels/minplus.py:39",
         "retrieval_topk": "src/repro/kernels/retrieval_topk.py:58",
         "flash_attention": "src/repro/kernels/flash_attention.py:64",
     }
     counted = {name: ("main_path", out["launches"][name], results[name])
-               for name in ("topk_merge", "sweep_merge", "frontier_relax")}
+               for name in ("topk_merge", "sweep_merge", "sweep_merge_levels", "frontier_relax")}
     counted["minplus"] = ("certify", cert["launches"]["minplus"], results["minplus"])
     counted["retrieval_topk"] = ("recsys", rec["launches"]["retrieval_topk"],
                                  results["retrieval_topk"])
@@ -1329,13 +1582,13 @@ def main() -> int:
                                   results["flash_attention"])
     say({"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+         "source": f"src/repro_torch/kernels/csrc/{name.removesuffix('_levels')}.cu",
          "replaces": replaces[name], "launches": counted[name][1],
          "launches_phase": counted[name][0],
          **{key: counted[name][2][key] for key in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
             + (("dtype_routes",) if "dtype_routes" in counted[name][2] else ())}}
-        for name in _build.KERNELS
+        for name in replaces
     ]})
     say({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

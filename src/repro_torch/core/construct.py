@@ -10,17 +10,19 @@ are processed as one device step:
 * ``prepare_sweep`` packs every level's ``verts``/``nbr``/``w`` into a small
   number of flat, contiguous device arrays, one set per neighbour-width bucket
   (power-of-4 widths capped at the global max), a level's rows next to each
-  other, and records where each level's rows start. The whole schedule is
-  uploaded once per sweep; nothing else crosses the host/device boundary
-  until the result is read. No row is padding: a launch covers exactly its
-  level's rows, so the fixed row chunks of the JAX package's layout (there to
-  bound the number of compiled shapes) have no counterpart here.
+  other, and a device level table of (bucket, first row, row count) per
+  level. The whole schedule is uploaded once per sweep; nothing else crosses the host/device
+  boundary until the result is read. No row is padding: a level covers
+  exactly its rows, so the fixed row chunks of the JAX package's layout
+  (there to bound the number of compiled shapes) have no counterpart here.
 
-* ``run_sweep`` walks the levels in order and launches ``ops.sweep_merge``
-  ONCE PER LEVEL over that level's contiguous row range, in place on the live
-  tables (the level invariant makes that safe). The true dependency is the
-  level. A road network has hundreds of small levels per direction, so the
-  sweep's time is mostly launch overhead, not kernel time.
+* ``run_sweep`` hands the level table to ``ops.sweep_merge_levels``: ONE
+  launch for the whole sweep, whose blocks walk the levels in order with a
+  grid barrier after each, in place on the live tables (the level invariant
+  makes that safe). A road network has hundreds of small levels per
+  direction; launched one by one, the sweep's time would be mostly launch
+  overhead. On the CPU the same table is walked level by level with the
+  plain version.
 
 * ``build_knn_tables`` chains the two sweeps on the device: the bottom-up
   tables (V_k^<, dummy row included) are the top-down sweep's per-vertex
@@ -71,9 +73,8 @@ class SweepPlan:
     n: int
     direction: str
     buckets: tuple[SweepBucket, ...]
-    level_bucket: tuple[int, ...]  # bucket index of each level
-    level_off: tuple[int, ...]     # first row of each level in its bucket
     level_sizes: tuple[int, ...]
+    levels: torch.Tensor           # (L, 3) int32 (bucket, first row, rows), on the device
     occupancy: float               # true neighbour cells / cells of the flat layout
     occupancy_levelwise: float     # same under per-level pow2 padding of rows and width
 
@@ -92,39 +93,64 @@ def _next_pow2(x: int, lo: int = 8) -> int:
 
 def prepare_sweep(bn: BNGraph, direction: str, *, device="cuda") -> SweepPlan:
     """Extract one direction's schedule and upload it to the device, once."""
-    dev = resolve_device(device)
     _, ids_tab, w_tab = bn.sweep_tables(direction)
-    n = bn.n
-    deg = (ids_tab >= 0).sum(axis=1)
-    cap = _next_pow2(int(deg.max()), lo=4) if n else 4
+    # a row's span: its last neighbour's column + 1 (its degree, as a
+    # BN-Graph's rows hold their neighbours first); a level copies only the
+    # columns of its widest span
+    filled = ids_tab >= 0
+    span = np.where(filled.any(axis=1), ids_tab.shape[1] - filled[:, ::-1].argmax(axis=1), 0)
+    levels = []
+    for vs in bn.level_members(direction):
+        t = int(span[vs].max())
+        levels.append((vs, ids_tab[vs, :t], w_tab[vs, :t]))
+    return pack_sweep(bn.n, direction, levels, device=device)
 
-    levels = bn.level_members(direction)
-    members: dict[int, list[np.ndarray]] = {}  # T -> its levels' vertices, in level order
-    filled: dict[int, int] = {}                # T -> rows so far
+
+def pack_sweep(n: int, direction: str, levels, *, device="cuda") -> SweepPlan:
+    """Pack levels, in order, into the flat bucketed layout and upload it.
+
+    ``levels`` holds one (verts (R,), nbr (R, W), w (R, W)) numpy triple per
+    level: its target rows and their neighbour rows (-1 = no neighbour) and
+    edge weights. A row's neighbours come first: no neighbour may stand in a
+    column past the row's neighbour count (empty slots between them are
+    fine). A level's rows may read only rows of earlier levels.
+    """
+    dev = resolve_device(device)
+    degs = [(nbr >= 0).sum(axis=1) for _, nbr, _ in levels]
+    cap = _next_pow2(max((int(d.max()) for d in degs if d.size), default=0), lo=4)
+
+    members: dict[int, list[tuple]] = {}      # T -> its levels' rows, in level order
+    filled: dict[int, int] = {}               # T -> rows so far
     level_bucket: list[int] = []
     level_off: list[int] = []
     true_cells = 0
     flat_cells = 0
     levelwise_cells = 0
-    for vs in levels:
-        t_true = int(deg[vs].max())
+    for (vs, nbr, w), deg in zip(levels, degs):
+        t_true = int(deg.max()) if deg.size else 0
         t_pad = _t_bucket(t_true, cap)
-        members.setdefault(t_pad, []).append(vs)
+        members.setdefault(t_pad, []).append((vs, nbr, w))
         level_bucket.append(list(members).index(t_pad))
         level_off.append(filled.get(t_pad, 0))
         filled[t_pad] = level_off[-1] + len(vs)
-        true_cells += int(deg[vs].sum())
+        true_cells += int(deg.sum())
         flat_cells += len(vs) * t_pad
         levelwise_cells += _next_pow2(len(vs)) * (_next_pow2(t_true, lo=1) if t_true else 1)
 
     buckets = []
     for t_pad, parts in members.items():
-        verts = np.concatenate(parts).astype(np.int32)
-        t_copy = min(t_pad, ids_tab.shape[1])
+        verts = np.concatenate([vs for vs, _, _ in parts]).astype(np.int32)
         nbr = np.full((verts.size, t_pad), -1, np.int32)
         w = np.full((verts.size, t_pad), _INF, np.float32)
-        nbr[:, :t_copy] = ids_tab[verts, :t_copy]
-        w[:, :t_copy] = w_tab[verts, :t_copy]
+        row = 0
+        for vs, p_nbr, p_w in parts:
+            t_copy = min(t_pad, p_nbr.shape[1])
+            if (p_nbr[:, t_copy:] >= 0).any():
+                raise ValueError(f"pack_sweep: a row has a neighbour past column {t_copy}; "
+                                 "put each row's neighbours first")
+            nbr[row : row + len(vs), :t_copy] = p_nbr[:, :t_copy]
+            w[row : row + len(vs), :t_copy] = p_w[:, :t_copy]
+            row += len(vs)
         w[nbr < 0] = _INF
         buckets.append(
             SweepBucket(
@@ -134,13 +160,14 @@ def prepare_sweep(bn: BNGraph, direction: str, *, device="cuda") -> SweepPlan:
                 w=torch.from_numpy(w).to(dev),
             )
         )
+    level_sizes = [len(vs) for vs, _, _ in levels]
+    table = np.array([level_bucket, level_off, level_sizes], np.int32).T.reshape(-1, 3)
     return SweepPlan(
         n=n,
         direction=direction,
         buckets=tuple(buckets),
-        level_bucket=tuple(level_bucket),
-        level_off=tuple(level_off),
-        level_sizes=tuple(len(vs) for vs in levels),
+        level_sizes=tuple(level_sizes),
+        levels=torch.from_numpy(np.ascontiguousarray(table)).to(dev),
         occupancy=true_cells / max(1, flat_cells),
         occupancy_levelwise=true_cells / max(1, levelwise_cells),
     )
@@ -159,17 +186,15 @@ def run_sweep(
     extra_* supply the non-neighbour candidate terms of Lemmas 5.12/5.21:
     bottom-up, the vertex itself when it is an object; top-down, the vertex's
     own V_k^< row. Both are (n+1)-row device tables (dummy row last), gathered
-    on device, so the loop below only enqueues launches.
+    on device; the whole sweep is one launch.
     """
     dev = extra_ids.device
     vk_ids = torch.full((plan.n + 1, k), -1, dtype=torch.int32, device=dev)
     vk_d = torch.full((plan.n + 1, k), float("inf"), dtype=torch.float32, device=dev)
-    for bid, off, size in zip(plan.level_bucket, plan.level_off, plan.level_sizes):
-        b = plan.buckets[bid]
-        ops.sweep_merge(
-            b.nbr[off : off + size], b.verts[off : off + size], b.w[off : off + size],
-            extra_ids, extra_d, vk_ids, vk_d, k, inplace=True, use_kernel=use_kernel,
-        )
+    ops.sweep_merge_levels(
+        [(b.nbr, b.w, b.verts) for b in plan.buckets], plan.levels,
+        extra_ids, extra_d, vk_ids, vk_d, k, use_kernel=use_kernel,
+    )
     return vk_ids, vk_d
 
 

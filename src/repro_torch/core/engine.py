@@ -37,10 +37,11 @@ and exposes the paper's three operations in batched form:
   over the purged rows' bridge neighbourhoods) then repair the deletion holes
   to a fixpoint: Algorithm 5's processDel, run breadth-first on device.
 
-  The repair rounds use the merge's tile form (``inplace=False``): repaired
-  rows read each other, so every row of a round must read the pre-round
-  tables. On a GPU the in-place form would be a data race there, not only a
-  semantic slip. The round compares the tile with the old rows, then scatters.
+  The repair rounds use ``ops.sweep_merge``, which returns the merged rows as
+  a tile and only reads the tables: repaired rows read each other, so every
+  row of a round must read the pre-round tables. On a GPU an in-place merge
+  would be a data race there, not only a semantic slip. The round compares
+  the tile with the old rows, then scatters.
 
 Queries always see the last *flushed* state: the staged queue is invisible
 until ``flush_updates``, the paper's batch-update-arrival serving model.
@@ -1259,13 +1260,12 @@ def _repair_round(nbr_tab, w_tab, rows, vk_ids, vk_d, use_kernel: bool) -> torch
     """One Jacobi repair round, in place on (vk_ids, vk_d): every row in
     ``rows`` re-merges its own entries (extras tables = the live tables
     themselves) with its bridge neighbours' rows, all reading the pre-round
-    tables (``inplace=False`` merge, then compare, then scatter). Returns the
+    tables (tile merge, then compare, then scatter). Returns the
     per-row changed mask the caller uses to narrow the next round."""
     k = vk_ids.shape[1]
     idx = rows.long()
     new_ids, new_d = ops.sweep_merge(
-        nbr_tab[idx], rows, w_tab[idx], vk_ids, vk_d, vk_ids, vk_d, k,
-        inplace=False, use_kernel=use_kernel,
+        nbr_tab[idx], rows, w_tab[idx], vk_ids, vk_d, vk_ids, vk_d, k, use_kernel=use_kernel,
     )
     changed = ((new_ids != vk_ids[idx]) | (new_d != vk_d[idx])).any(dim=1)
     vk_ids[idx] = new_ids

@@ -6,118 +6,403 @@
 // Replaces the TPU kernel `sweep_merge_pallas` / `_sweep_merge_kernel`
 // (src/repro/kernels/sweep_merge.py). That kernel walked a sequential
 // (CHUNK, T) grid, one (1, k) row copy per step, carrying a candidate scratch
-// from step to step, with nbr/verts prefetched as scalars. Here blocks run in
-// parallel and carry nothing: one block per target row loads its own
-// nbr[i, :] and verts[i], loops over the T neighbours itself, fills the
-// candidate list in shared memory and runs `kround_select` on it. The
-// (S, T*k+E) candidate tensor never exists in device memory.
+// from step to step, with nbr/verts prefetched as scalars, one call per
+// level. Here blocks run in parallel and carry nothing, and the (S, T*k+E)
+// candidate tensor never exists in device memory.
 //
-// Read and write tables are separate pointers. Construction passes the same
-// buffers for both (a level's neighbour rows and target rows are disjoint, so
-// in place is safe). A repair round, whose rows read each other, asks for
-// `compact` output instead: block i writes row i of an (S, k) tile and the
-// live tables are only read. In scatter mode the store is masked for
-// verts[i] == n: padded rows all aim at the dummy row n, which would be
-// concurrent stores, and row n must stay (-1, +inf) because pad slots read it.
+// What bounds it on an H100. The bytes a call must move (S*T*8 of schedule,
+// the distinct neighbour rows at k*8 bytes, S*E*8 of extras, S*k*8 written)
+// take microseconds for a level and ~0.15 ms at a 131,072-row batch, so two
+// other things decide: the selection's latency, and, for a construction
+// sweep, the number of dependent steps (levels: ~900 a direction on a
+// 147,456-vertex road network, most of them a few hundred rows).
 //
-// Shared memory is (t_group*k + max(E, k) + 33 + k) * 8 bytes. When all T
-// neighbours do not fit in what a block may have, the caller passes
-// t_group < T and the block walks the neighbours in groups, carrying the
-// running k best into the next group as extra candidates (the dedup top-k of
-// a union is the dedup top-k of one part's top-k with the other part).
+// The design:
+// - One warp per target row, and a selection that crosses no block barrier.
+//   Lane l holds candidates l, l + 32, ... in registers as packed 64-bit keys
+//   (kround.cuh: distance bits << 32 | id; invalid, +inf, NaN and negative
+//   distances pack to the dead key), at most 24 a lane; the register count is
+//   a template argument picked per row width (4, 8, 16 or 24), so narrow rows
+//   do not scan empty registers. The selection is k rounds of
+//   `kround_merge`: each lane drops the last selected id from its keys and
+//   takes its min by a tree, two `redux.sync` give the warp's min (distance
+//   bits, then the smallest id holding them), which is the next entry; a
+//   round whose min is the dead key ends the row, and its remaining slots are
+//   (-1, +inf). Every candidate is scanned each round, so a rounding tie
+//   inside one neighbour's list (two of its distances made equal by + w, the
+//   later one carrying the smaller id) is still resolved by id. A
+//   neighbour's row is read by consecutive lanes: 80 contiguous bytes at
+//   k = 20.
+// - Rows wider than the registers (T up to ~700) are walked in groups of
+//   neighbours, each group's candidates together with the running k best of
+//   the groups before: the dedup top-k of a union is the dedup top-k of one
+//   part's dedup top-k with the other part. The running k best sit in the
+//   warp's own k slots of shared memory. A group whose neighbour slots are
+//   all empty (padding of a wide bucket) costs its loads and no rounds.
+// - `knn_sweep_merge`: one call, one repair round: 8 rows a block, a warp a
+//   row, the merged rows written to an (S, k) tile (the tables are only
+//   read, so rows that read each other all see the pre-round tables).
+// - `knn_sweep_levels`: a whole construction sweep in ONE cooperative launch
+//   of as many blocks as fit on the card at once. It walks a device level
+//   table (bucket, first row, row count) and a bucket table (nbr, w, verts
+//   pointers and width t); each level's rows are spread over every warp of
+//   the grid, then a grid barrier, written by hand (an arrival counter and a
+//   generation word, fences on both sides) so that no -rdc is needed. A
+//   level's time is its slowest row's, and the top of a road network's
+//   hierarchy is hundreds of levels of one to a few rows with 100-600
+//   neighbours each, which one warp (or one SM) would walk group after
+//   group. So in a level of few rows wider than one group, the (row, group)
+//   pairs are spread over the grid's warps, up to 38 parts a row: each warp
+//   writes its part's dedup top-k to a scratch row, fences, and counts it on
+//   the row's counter; the warp that counts the last part merges the row's
+//   parts (still no block barrier). Levels of many rows keep a warp a row.
 //
-// Bound on an H100: bytes. The call must read S*T*8 bytes of schedule, the
-// distinct neighbour rows (k*8 bytes each) and S*E*8 of extras, and write
-// S*k*8; the selection does about 2*k*(T*k+E) integer compare/selects per
-// row, under the card's operations-to-bytes ratio at k = 20. Each gathered
-// row is k contiguous values (80 bytes at k = 20), read once.
+// L1 is not coherent across SMs, and a grid barrier does not invalidate it:
+// a row is 80 bytes at k = 20, so one 128-byte line spans two rows written at
+// different levels, and an SM that read row u at level L could later hit a
+// stale copy of row u + 1. So the live tables are read with `__ldcg` (L2
+// only), never through `__ldg` or a `const __restrict__` pointer; only
+// arrays this launch never writes (schedule, extras, level table) go through
+// L1. The dummy row n is never stored: padded rows all aim at it, and row n
+// must stay (-1, +inf) because pad slots read it.
 #include "kround.cuh"
 
 namespace {
 
-__global__ void sweep_merge_kernel(
-    const int* __restrict__ nbr, const int* __restrict__ verts,
-    const float* __restrict__ w, const int* ex_ids, const float* ex_d,
-    const int* rd_ids, const float* rd_d, int* wr_ids, float* wr_d, int t,
-    int k, int e, int n, int t_group, int compact) {
-  extern __shared__ knn::key_t smem[];
-  const int tail_cap = e > k ? e : k;
-  knn::key_t* keys = smem;
-  knn::key_t* red = keys + t_group * k + tail_cap;
-  knn::key_t* sel = red + knn::kRedSlots;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const size_t i = blockIdx.x;
-  const int v = verts[i];
-  if (!compact && v == n) return;  // whole block leaves together
-  const int* nbr_i = nbr + i * t;
-  const float* w_i = w + i * t;
+constexpr int kWarps = 8;  // rows a block of the one-level kernel holds at once
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxRegs = 24;  // candidate keys a lane may hold
+constexpr int kMaxCands = kMaxRegs * 32;
+// OR-ed into a key whose id was selected: it then sorts after the dead key
+constexpr knn::key_t kDropped = 0xffffffff00000000ull;
 
-  int j0 = 0;
-  do {
-    const int tg = min(t_group, t - j0);
-    const int body = tg * k;
-    for (int idx = tid; idx < body; idx += nthr) {
-      const int j = j0 + idx / k;
-      const int col = idx - (idx / k) * k;
-      const int u = nbr_i[j];
-      knn::key_t key = knn::kDeadKey;
-      if (u >= 0) {
-        const size_t at = static_cast<size_t>(u) * k + col;
-        key = knn::pack_key(rd_ids[at], __fadd_rn(w_i[j], rd_d[at]));
-      }
-      keys[idx] = key;
-    }
-    int tail;
-    if (j0 == 0) {  // first group: the row's own extra candidates
-      tail = e;
-      for (int idx = tid; idx < e; idx += nthr) {
-        const size_t at = static_cast<size_t>(v) * e + idx;
-        keys[body + idx] = knn::pack_key(ex_ids[at], ex_d[at]);
-      }
-    } else {        // later groups: the running k best of the groups before
-      tail = k;
-      for (int idx = tid; idx < k; idx += nthr) keys[body + idx] = sel[idx];
-    }
-    knn::kround_select(keys, body + tail, k, red, sel);
-    j0 += t_group;
-  } while (j0 < t);
+// Neighbours a group may hold: its candidates plus the tail (E extras in the
+// first group, the k carried in later ones) must fit the warp's registers.
+__host__ __device__ __forceinline__ int group_cap(int k, int e) {
+  return (kMaxCands - (e > k ? e : k)) / k;
+}
 
-  const size_t out_row = compact ? i : static_cast<size_t>(v);
-  for (int r = tid; r < k; r += nthr) {
-    wr_ids[out_row * k + r] = knn::key_id(sel[r]);
-    wr_d[out_row * k + r] = knn::key_dist(sel[r]);
+// The warp's min key: the min distance bits (one redux), then the min id
+// among the lanes that hold it (a second).
+__device__ __forceinline__ knn::key_t warp_min_key(knn::key_t v) {
+  const unsigned hi = __reduce_min_sync(0xffffffffu, static_cast<unsigned>(v >> 32));
+  const unsigned lo = __reduce_min_sync(
+      0xffffffffu, static_cast<unsigned>(v >> 32) == hi ? static_cast<unsigned>(v) : 0xffffffffu);
+  return (static_cast<knn::key_t>(hi) << 32) | lo;
+}
+
+// k rounds of `kround_merge` over the warp's candidates in `key` (REGS a
+// lane): drop the last selected id, take each lane's min by a tree, then
+// the warp's; `sel` (this warp's k slots) receives the k keys, dead keys
+// once the candidates run out.
+template <int REGS>
+__device__ __forceinline__ void select_rounds(knn::key_t (&key)[REGS], int k, knn::key_t* sel) {
+  const int lane = threadIdx.x & 31;
+  uint32_t last = 0xffffffffu;  // no valid id: matches only dead keys
+  int r = 0;
+  for (; r < k; ++r) {
+    knn::key_t m[REGS];
+#pragma unroll
+    for (int s = 0; s < REGS; ++s) {
+      // a dropped key keeps its id and gets distance bits above the dead key's
+      if (static_cast<uint32_t>(key[s]) == last) key[s] |= kDropped;
+      m[s] = key[s];
+    }
+#pragma unroll
+    for (int w = 1; w < REGS; w *= 2)
+#pragma unroll
+      for (int s = 0; s + w < REGS; s += 2 * w) m[s] = m[s + w] < m[s] ? m[s + w] : m[s];
+    const knn::key_t best = warp_min_key(m[0]);
+    if (best >= knn::kDeadKey) break;  // warp-uniform: the rest are dead too
+    if (lane == 0) sel[r] = best;
+    last = static_cast<uint32_t>(best);
+  }
+  for (int x = r + lane; x < k; x += 32) sel[x] = knn::kDeadKey;
+  __syncwarp();
+}
+
+// One warp's part of a row: its neighbour groups g_first, g_first + g_step,
+// ... (t_group neighbours each, of nbr_i[0..t)), the first of them with the
+// row's E extras when `extras` (the other groups carry the running k best).
+// A group whose neighbour slots are all empty is skipped once there is a
+// carried selection. `sel` receives the part's dedup top-k.
+template <int REGS>
+__device__ void select_groups(const int* nbr_i, const float* w_i, int t, int t_group,
+                              int g_first, int g_step, bool extras, const int* ex_ids,
+                              const float* ex_d, int e, size_t ex_row, const int* rd_ids,
+                              const float* rd_d, int k, knn::key_t* sel) {
+  const int lane = threadIdx.x & 31;
+  bool carry = false;
+  for (int g = g_first;; g += g_step) {
+    const int j0 = g * t_group;
+    const int body = max(0, min(t_group, t - j0)) * k;
+    const int tail = carry ? k : (extras ? e : 0);
+    knn::key_t key[REGS];
+    bool any = false;
+    // neighbour slots in chunks, loads without branches (an empty slot reads
+    // row 0 and is dropped): first each slot's neighbour and weight, then
+    // each slot's gathered entry, so that a chunk's loads are in flight
+    // together
+    constexpr int kChunk = REGS < 8 ? REGS : 8;
+    const int last_j = j0 + max(0, body / k - 1);
+#pragma unroll
+    for (int s = 0; s < REGS; ++s) key[s] = knn::kDeadKey;
+#pragma unroll
+    for (int c0 = 0; c0 < REGS && body > 0; c0 += kChunk) {
+      long long at[kChunk];
+      float wj[kChunk];
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        const int idx = (c0 + c) * 32 + lane;
+        const int q = idx / k;
+        const int j = min(j0 + q, last_j);
+        const int u = __ldg(nbr_i + j);
+        wj[c] = __ldg(w_i + j);
+        at[c] = idx < body && u >= 0 ? static_cast<long long>(u) * k + (idx - q * k) : -1;
+      }
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        const long long a = at[c] < 0 ? 0 : at[c];
+        const int id = __ldcg(rd_ids + a);
+        const float dist = __fadd_rn(wj[c], __ldcg(rd_d + a));
+        any |= at[c] >= 0;
+        key[c0 + c] = at[c] >= 0 ? knn::pack_key(id, dist) : knn::kDeadKey;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < REGS; ++s) {  // the tail: extras, or the carried k best
+      const int x = s * 32 + lane - body;
+      if (x >= 0 && x < tail)
+        key[s] = carry ? sel[x] : knn::pack_key(__ldg(ex_ids + ex_row * e + x),
+                                                __ldg(ex_d + ex_row * e + x));
+    }
+    __syncwarp();  // every lane has read the carried keys before they are rewritten
+    if (__any_sync(0xffffffffu, any) || !carry) select_rounds<REGS>(key, k, sel);
+    carry = true;
+    if ((g + g_step) * t_group >= t) break;
+  }
+}
+
+// The register count for groups of t_group neighbours plus a tail of
+// max(E, k), then the walk.
+__device__ __forceinline__ void merge_part(const int* nbr_i, const float* w_i, int t,
+                                           int t_group, int g_first, int g_step, bool extras,
+                                           const int* ex_ids, const float* ex_d, int e,
+                                           size_t ex_row, const int* rd_ids, const float* rd_d,
+                                           int k, knn::key_t* sel) {
+  const int cands = min(t_group, t) * k + (e > k ? e : k);
+  if (cands <= 4 * 32)
+    select_groups<4>(nbr_i, w_i, t, t_group, g_first, g_step, extras, ex_ids, ex_d, e, ex_row,
+                     rd_ids, rd_d, k, sel);
+  else if (cands <= 8 * 32)
+    select_groups<8>(nbr_i, w_i, t, t_group, g_first, g_step, extras, ex_ids, ex_d, e, ex_row,
+                     rd_ids, rd_d, k, sel);
+  else if (cands <= 16 * 32)
+    select_groups<16>(nbr_i, w_i, t, t_group, g_first, g_step, extras, ex_ids, ex_d, e, ex_row,
+                      rd_ids, rd_d, k, sel);
+  else
+    select_groups<kMaxRegs>(nbr_i, w_i, t, t_group, g_first, g_step, extras, ex_ids, ex_d, e,
+                            ex_row, rd_ids, rd_d, k, sel);
+}
+
+// A row's parts (c keys in device memory, written by other warps of the
+// grid) merged by one warp into `sel`: the dedup top-k of the parts' dedup
+// top-ks. Read through L2 (`__ldcg`): L1 may hold stale lines.
+template <int REGS>
+__device__ void merge_parts(const knn::key_t* parts, int c, int k, knn::key_t* sel) {
+  const int lane = threadIdx.x & 31;
+  knn::key_t key[REGS];
+#pragma unroll
+  for (int s = 0; s < REGS; ++s) {
+    const int idx = s * 32 + lane;
+    key[s] = idx < c ? __ldcg(parts + idx) : knn::kDeadKey;
+  }
+  select_rounds<REGS>(key, k, sel);
+}
+
+__device__ __forceinline__ void store_row(const knn::key_t* sel, int k, int* wr_ids,
+                                          float* wr_d, size_t row) {
+  for (int r = threadIdx.x & 31; r < k; r += 32) {
+    wr_ids[row * k + r] = knn::key_id(sel[r]);
+    wr_d[row * k + r] = knn::key_dist(sel[r]);
+  }
+}
+
+// One call: warp w of block b merges row b * kWarps + w into tile row i.
+__global__ void __launch_bounds__(kThreads)
+sweep_merge_kernel(const int* __restrict__ nbr, const int* __restrict__ verts,
+                   const float* __restrict__ w, const int* ex_ids, const float* ex_d,
+                   const int* rd_ids, const float* rd_d, int* out_ids, float* out_d, int s, int t,
+                   int k, int e, int t_group) {
+  extern __shared__ knn::key_t sel_all[];
+  const int warp = threadIdx.x >> 5;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kWarps + warp;
+  if (i >= static_cast<size_t>(s)) return;  // whole warp leaves
+  knn::key_t* sel = sel_all + warp * k;
+  merge_part(nbr + i * t, w + i * t, t, t_group, 0, 1, true, ex_ids, ex_d, e,
+             static_cast<size_t>(verts[i]), rd_ids, rd_d, k, sel);
+  store_row(sel, k, out_ids, out_d, i);
+}
+
+// Grid-wide barrier for a cooperative launch. bar[0] counts arrivals,
+// bar[1] is the generation the waiting blocks watch. The fence before the
+// arrival publishes this block's stores (cumulative over the block through
+// the __syncthreads before it); the fence after the wait orders the reads
+// that follow.
+__device__ __forceinline__ void grid_barrier(unsigned* bar, unsigned nblocks) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == nblocks - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// A whole sweep: levels (n_levels, 3) = (bucket, first row, rows);
+// buckets (n_buckets, 4) = (nbr, w, verts pointers, t). In place on ids/d.
+__global__ void __launch_bounds__(kThreads)
+sweep_levels_kernel(const int* __restrict__ levels, int n_levels,
+                    const long long* __restrict__ buckets, const int* __restrict__ ex_ids,
+                    const float* __restrict__ ex_d, int* ids, float* d, int k, int e, int n,
+                    knn::key_t* scratch, unsigned* counts, unsigned* bar) {
+  extern __shared__ knn::key_t sel_all[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  knn::key_t* sel = sel_all + warp * k;
+  const int first = blockIdx.x * kWarps + warp;
+  const int stride = gridDim.x * kWarps;
+  const int cap = group_cap(k, e);
+  for (int lv = 0; lv < n_levels; ++lv) {
+    const int* entry = levels + 3 * lv;
+    const long long* bk = buckets + 4 * entry[0];
+    const int* nbr = reinterpret_cast<const int*>(bk[0]);
+    const float* w = reinterpret_cast<const float*>(bk[1]);
+    const int* verts = reinterpret_cast<const int*>(bk[2]);
+    const int t = static_cast<int>(bk[3]);
+    const int t_group = max(1, min(t, cap));
+    const int end = entry[1] + entry[2];
+    const int groups = (t + t_group - 1) / t_group;
+    // a level of few rows wider than one group: its rows' groups are spread
+    // over the grid, one (row, group) item a warp; the warp that finishes a
+    // row's last part merges the row's parts
+    const int spread = groups > 1 && 2 * entry[2] <= stride
+                           ? min(kMaxCands / k, stride / max(1, entry[2])) : 1;
+    const int t_part = (t + spread - 1) / spread;
+    if (spread > 1 && t_part <= t_group) {
+      const int parts = (t + t_part - 1) / t_part;
+      const int items = entry[2] * parts;
+      for (int q = first; q < items; q += stride) {
+        const int row = q / parts, g = q - (q / parts) * parts;
+        const int i = entry[1] + row;
+        const int v = verts[i];
+        if (v == n) continue;
+        merge_part(nbr + static_cast<size_t>(i) * t, w + static_cast<size_t>(i) * t, t, t_part,
+                   g, parts, g == 0, ex_ids, ex_d, e, static_cast<size_t>(v), ids, d, k, sel);
+        knn::key_t* mine = scratch + static_cast<size_t>(q) * k;
+        for (int r = lane; r < k; r += 32) mine[r] = sel[r];
+        __threadfence();  // this part is visible before it is counted
+        __syncwarp();
+        unsigned done = 0;
+        if (lane == 0) done = atomicAdd(counts + row, 1u);
+        done = __shfl_sync(0xffffffffu, done, 0);
+        if (done + 1 == static_cast<unsigned>(parts)) {  // the row's last part: merge
+          __threadfence();
+          const knn::key_t* all = scratch + static_cast<size_t>(row) * parts * k;
+          const int c = parts * k;
+          if (c <= 4 * 32)
+            merge_parts<4>(all, c, k, sel);
+          else if (c <= 8 * 32)
+            merge_parts<8>(all, c, k, sel);
+          else if (c <= 16 * 32)
+            merge_parts<16>(all, c, k, sel);
+          else
+            merge_parts<kMaxRegs>(all, c, k, sel);
+          store_row(sel, k, ids, d, static_cast<size_t>(v));
+          if (lane == 0) counts[row] = 0;  // for a later level, after the barrier
+        }
+      }
+    } else {  // a warp a row, its groups one after the other
+      for (int i = entry[1] + first; i < end; i += stride) {
+        const int v = verts[i];
+        if (v == n) continue;
+        merge_part(nbr + static_cast<size_t>(i) * t, w + static_cast<size_t>(i) * t, t, t_group,
+                   0, 1, true, ex_ids, ex_d, e, static_cast<size_t>(v), ids, d, k, sel);
+        store_row(sel, k, ids, d, static_cast<size_t>(v));
+      }
+    }
+    if (lv + 1 < n_levels) grid_barrier(bar, gridDim.x);
   }
 }
 
 }  // namespace
 
-// Shared-memory bytes one block needs when it holds t_group neighbours.
-extern "C" long long knn_sweep_merge_smem(int t_group, int k, int e) {
-  const int tail_cap = e > k ? e : k;
-  return static_cast<long long>(t_group * k + tail_cap + knn::kRedSlots + k) *
-         sizeof(knn::key_t);
+// Most neighbours one group may hold at (k, E); 0 if k and E leave no room.
+extern "C" int knn_sweep_group_cap(int k, int e) {
+  const int cap = k > 0 ? group_cap(k, e) : 0;
+  return cap > 0 ? cap : 0;
 }
 
+// The kernels' geometry: which = 0 -> warps a block (the sweep's scratch
+// holds k keys and one counter for each warp of its grid), 1 -> candidates
+// a warp holds in registers.
+extern "C" int knn_sweep_geometry(int which) { return which == 0 ? kWarps : kMaxCands; }
+
 // nbr, w: (s, t); verts: (s,); ex_*: (n+1, e); rd_*: (n+1, k) read tables;
-// wr_*: (n+1, k) tables (compact = 0) or an (s, k) tile (compact = 1).
+// out_*: an (s, k) tile. 1 <= t_group <= knn_sweep_group_cap(k, e).
 // Returns the CUDA error code of the launch (0 = launched).
 extern "C" int knn_sweep_merge(const int* nbr, const int* verts, const float* w,
-                               const int* ex_ids, const float* ex_d,
-                               const int* rd_ids, const float* rd_d,
-                               int* wr_ids, float* wr_d, int s, int t, int k,
-                               int e, int n, int t_group, int compact,
-                               int threads, void* stream) {
+                               const int* ex_ids, const float* ex_d, const int* rd_ids,
+                               const float* rd_d, int* out_ids, float* out_d, int s, int t, int k,
+                               int e, int t_group, void* stream) {
   if (s == 0) return 0;
-  const size_t smem = knn_sweep_merge_smem(t_group, k, e);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        sweep_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  sweep_merge_kernel<<<s, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      nbr, verts, w, ex_ids, ex_d, rd_ids, rd_d, wr_ids, wr_d, t, k, e, n,
-      t_group, compact);
+  const size_t smem = static_cast<size_t>(kWarps) * k * sizeof(knn::key_t);
+  const int blocks = (s + kWarps - 1) / kWarps;
+  sweep_merge_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      nbr, verts, w, ex_ids, ex_d, rd_ids, rd_d, out_ids, out_d, s, t, k, e, t_group);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of one cooperative sweep launch: as many as fit on the card at once.
+// Returns 0 if the runtime reports none (or an error).
+static size_t levels_smem(int k) {
+  return static_cast<size_t>(kWarps) * k * sizeof(knn::key_t);
+}
+
+extern "C" int knn_sweep_levels_grid(int k) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_levels_kernel, kThreads,
+                                                    levels_smem(k)) != cudaSuccess)
+    return 0;
+  return per_sm * sms;
+}
+
+// levels: (n_levels, 3) int32, buckets: (n_buckets, 4) int64, both on the
+// device; ex_*: (n+1, e), ids/d: (n+1, k) live tables, written in place;
+// grid: knn_sweep_levels_grid(k); scratch: grid * kWarps * k keys; counts:
+// grid * kWarps zeroed words; bar: two zeroed words. Returns the CUDA error code
+// (0 = launched); a cooperative launch the runtime refuses is returned as such.
+extern "C" int knn_sweep_levels(const int* levels, int n_levels, const long long* buckets,
+                                const int* ex_ids, const float* ex_d, int* ids, float* d, int k,
+                                int e, int n, int grid, unsigned long long* scratch,
+                                unsigned* counts, unsigned* bar, void* stream) {
+  if (n_levels == 0) return 0;
+  if (grid < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const size_t smem = levels_smem(k);
+  void* args[] = {&levels, &n_levels, &buckets, &ex_ids, &ex_d, &ids, &d, &k, &e, &n,
+                  &scratch, &counts, &bar};
+  const cudaError_t err =
+      cudaLaunchCooperativeKernel((const void*)sweep_levels_kernel, grid, kThreads, args, smem,
+                                  static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
 }

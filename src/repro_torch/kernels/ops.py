@@ -1,7 +1,8 @@
 """Public wrappers around the CUDA kernels, and the plain-torch table ops.
 
-Six functions here launch a hand-written kernel (``csrc/*.cu``):
-``topk_merge``, ``sweep_merge``, ``frontier_relax``, ``minplus_matmul``,
+Seven functions here launch a hand-written kernel (``csrc/*.cu``):
+``topk_merge``, ``sweep_merge`` and ``sweep_merge_levels`` (K2: one call, one
+repair round; one call, a whole sweep), ``frontier_relax``, ``minplus_matmul``,
 ``retrieval_topk`` and ``flash_attention``.
 Given CUDA tensors and ``use_kernel=True`` (the default) a wrapper checks
 device, dtype, shape and contiguity, launches its kernel on the current
@@ -26,8 +27,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-LAUNCHES = {"topk_merge": 0, "sweep_merge": 0, "frontier_relax": 0, "minplus": 0,
-            "retrieval_topk": 0, "flash_attention": 0}
+LAUNCHES = {"topk_merge": 0, "sweep_merge": 0, "sweep_merge_levels": 0, "frontier_relax": 0,
+            "minplus": 0, "retrieval_topk": 0, "flash_attention": 0}
 
 # what one block may have on an H100 (227 KB of the SM's 256 KB)
 MAX_SMEM_BYTES = 232448
@@ -52,14 +53,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # go as c_void_p, or ctypes would cut them to 32 bits
 _SIGNATURES = {
     "knn_topk_merge": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "knn_sweep_merge": ([_P] * 9 + [_I] * 8 + [_P], _I),
+    "knn_sweep_merge": ([_P] * 9 + [_I] * 5 + [_P], _I),
+    "knn_sweep_levels": ([_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+    "knn_sweep_levels_grid": ([_I], _I),
+    "knn_sweep_group_cap": ([_I, _I], _I),
+    "knn_sweep_geometry": ([_I], _I),
     "knn_frontier_relax": ([_P] * 7 + [_I] * 4 + [_P], _I),
-    "knn_minplus": ([_P] * 3 + [_I] * 3 + [_P], _I),
+    "knn_minplus": ([_P] * 3 + [_I] * 3 + [_P] * 5, _I),
+    "knn_minplus_bits": ([_P, _P, _I, _I, _I, _P, _P, _P], _I),
+    "knn_minplus_geometry": ([_I], _I),
     "knn_retrieval_topk": ([_P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
     "knn_retrieval_tile": ([], _I),
     "knn_flash_attention": ([_P] * 4 + [_I] * 8 + [ctypes.c_float, _P], _I),
     "knn_topk_merge_smem": ([_I, _I], ctypes.c_longlong),
-    "knn_sweep_merge_smem": ([_I, _I, _I], ctypes.c_longlong),
 }
 _fns: dict[str, object] = {}
 
@@ -145,6 +151,17 @@ def topk_merge(cand_ids: torch.Tensor, cand_d: torch.Tensor, k: int, *, use_kern
 # ----------------------------------------------------------------------
 
 
+def _sweep_group(t: int, k: int, e: int, t_group: int | None) -> int:
+    """Neighbours per group: all T where the kernel's registers hold them."""
+    cap = _fn("sweep_merge", "knn_sweep_group_cap")(k, e)
+    if cap < 1:
+        cands = _fn("sweep_merge", "knn_sweep_geometry")(1)
+        raise ValueError(f"sweep_merge: k={k}, E={e} leave no room for a neighbour "
+                         f"in the kernel's {cands} candidates a row")
+    group = min(max(1, t), cap)
+    return group if t_group is None else max(1, min(group, t_group))
+
+
 def sweep_merge(
     nbr: torch.Tensor,      # (S, T) int32 neighbour rows, -1 = padded slot
     verts: torch.Tensor,    # (S,) int32 target rows, n (dummy) = padded row
@@ -155,38 +172,26 @@ def sweep_merge(
     vk_d: torch.Tensor,     # (n+1, k) float32 live table
     k: int,
     *,
-    inplace: bool,
     use_kernel: bool = True,
-    max_smem_bytes: int = MAX_SMEM_BYTES,
+    t_group: int | None = None,
 ):
-    """Fused sweep step: gather + shift + dedup top-k (+ scatter).
+    """Fused sweep step: gather + shift + dedup top-k.
 
-    ``inplace=True`` stores the merged rows at rows ``verts`` of the live
-    tables and returns them. That is the construction sweeps' form and is only
-    right under the level invariant: a call's neighbour rows and target rows
-    are disjoint. Padded rows (``verts == n``) are not stored, so the dummy
-    row stays (-1, +inf).
-
-    ``inplace=False`` leaves the tables untouched and returns the merged rows
-    as fresh (S, k) tiles, row i for ``verts[i]``. The engine's repair rounds
-    use this form: repaired rows read each other, so they must all read the
-    pre-round tables, and the caller scatters after it has compared.
+    Leaves the tables untouched and returns the merged rows as fresh (S, k)
+    tiles, row i for ``verts[i]``. The engine's repair rounds use it:
+    repaired rows read each other, so they must all read the pre-round
+    tables, and the caller scatters after it has compared. The construction
+    sweeps, which write in place, are ``sweep_merge_levels``.
 
     CUDA kernel: ``csrc/sweep_merge.cu`` (replaces ``sweep_merge_pallas``).
-    One block per target row, candidates only ever in shared memory. Bound by
-    bytes: S*T*8 of schedule, the distinct neighbour rows and S extras rows
-    read, S*k*8 written. When T*k+E candidates exceed ``max_smem_bytes`` the
-    block walks the neighbours in groups, carrying its running k best.
+    One warp per target row, candidates only ever in registers, no block
+    barrier. Bound by bytes: S*T*8 of schedule, the distinct neighbour rows and
+    S extras rows read, S*k*8 written. Rows whose T*k+E candidates exceed the
+    warp's registers are walked in groups of neighbours, carrying the running
+    k best; ``t_group`` asks for smaller groups (the on-card check does).
     """
     if not (vk_ids.is_cuda and use_kernel):
-        m_ids, m_d = ref.sweep_merge_ref(nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d, k)
-        if not inplace:
-            return m_ids, m_d
-        keep = verts != vk_ids.shape[0] - 1
-        rows = verts[keep].long()
-        vk_ids[rows] = m_ids[keep]
-        vk_d[rows] = m_d[keep]
-        return vk_ids, vk_d
+        return ref.sweep_merge_ref(nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d, k)
     dev = vk_ids.device
     s, t = nbr.shape
     n1 = vk_ids.shape[0]
@@ -198,31 +203,90 @@ def sweep_merge(
     _check("ex_d", ex_d, torch.float32, (n1, e), dev)
     _check("vk_ids", vk_ids, torch.int32, (n1, k), dev)
     _check("vk_d", vk_d, torch.float32, (n1, k), dev)
-    smem_of = _fn("sweep_merge", "knn_sweep_merge_smem")
-    t_group = max(1, t)
-    if smem_of(t_group, k, e) > max_smem_bytes:
-        fixed = smem_of(0, k, e)
-        t_group = (max_smem_bytes - fixed) // (k * 8)
-        if t_group < 1:
-            raise ValueError(
-                f"sweep_merge: k={k}, E={e} do not fit {max_smem_bytes} bytes of shared memory"
-            )
-    if inplace:
-        out_ids, out_d = vk_ids, vk_d
-    else:
-        out_ids = torch.empty((s, k), dtype=torch.int32, device=dev)
-        out_d = torch.empty((s, k), dtype=torch.float32, device=dev)
+    group = _sweep_group(t, k, e, t_group)
+    out_ids = torch.empty((s, k), dtype=torch.int32, device=dev)
+    out_d = torch.empty((s, k), dtype=torch.float32, device=dev)
     if s:
         with torch.cuda.device(dev):
             code = _fn("sweep_merge", "knn_sweep_merge")(
                 nbr.data_ptr(), verts.data_ptr(), w.data_ptr(),
                 ex_ids.data_ptr(), ex_d.data_ptr(), vk_ids.data_ptr(), vk_d.data_ptr(),
                 out_ids.data_ptr(), out_d.data_ptr(),
-                s, t, k, e, n1 - 1, t_group, 0 if inplace else 1,
-                _threads(min(t, t_group) * k + e, 256), _stream(dev),
+                s, t, k, e, group, _stream(dev),
             )
         _launched("sweep_merge", code)
     return out_ids, out_d
+
+
+def sweep_merge_levels(
+    buckets,                # sequence of (nbr (R, t), w (R, t), verts (R,)), rows level after level
+    levels: torch.Tensor,   # (L, 3) int32 rows (bucket, first row, row count), in level order
+    ex_ids: torch.Tensor,   # (n+1, E) int32 per-vertex extra candidates
+    ex_d: torch.Tensor,     # (n+1, E) float32
+    vk_ids: torch.Tensor,   # (n+1, k) int32 live table, written in place
+    vk_d: torch.Tensor,     # (n+1, k) float32 live table, written in place
+    k: int,
+    *,
+    use_kernel: bool = True,
+) -> int:
+    """A whole construction sweep: for each level in order, the
+    ``sweep_merge`` of its rows, stored at rows ``verts`` of the live tables.
+    Each level's rows read only rows of earlier levels (the level invariant).
+    Padded rows (``verts == n``) are not stored, so the dummy row stays
+    (-1, +inf). Returns the number of blocks launched (0 on the plain path).
+
+    CUDA kernel: ``knn_sweep_levels`` in ``csrc/sweep_merge.cu``, ONE
+    cooperative launch of as many blocks as the card holds at once, which walk
+    ``levels`` with a grid barrier after each: a warp a row, or, for a level
+    of few rows wider than one group of neighbours, a warp a (row, group)
+    part, the last part's warp merging the row. The kernel reads the
+    buckets' addresses and widths from a (B, 4) table built here from
+    ``buckets``. A launch the runtime refuses raises. The plain path walks
+    the same ``levels`` table with ``ref.sweep_merge_ref``, one level at a
+    time.
+    """
+    n1 = vk_ids.shape[0]
+    if not (vk_ids.is_cuda and use_kernel):
+        for bid, off, size in levels.tolist():
+            nbr, w, verts = (x[off : off + size] for x in buckets[bid])
+            m_ids, m_d = ref.sweep_merge_ref(nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d, k)
+            keep = verts != n1 - 1
+            rows = verts[keep].long()
+            vk_ids[rows] = m_ids[keep]
+            vk_d[rows] = m_d[keep]
+        return 0
+    dev = vk_ids.device
+    e = ex_ids.shape[1]
+    _check("ex_ids", ex_ids, torch.int32, (n1, e), dev)
+    _check("ex_d", ex_d, torch.float32, (n1, e), dev)
+    _check("vk_ids", vk_ids, torch.int32, (n1, k), dev)
+    _check("vk_d", vk_d, torch.float32, (n1, k), dev)
+    if ex_ids.data_ptr() == vk_ids.data_ptr() or ex_d.data_ptr() == vk_d.data_ptr():
+        raise ValueError("sweep_merge_levels: the extras must not be the live tables")
+    _check("levels", levels, torch.int32, (levels.shape[0], 3), dev)
+    for nbr, w, verts in buckets:
+        r, t = nbr.shape
+        _check("nbr", nbr, torch.int32, (r, t), dev)
+        _check("w", w, torch.float32, (r, t), dev)
+        _check("verts", verts, torch.int32, (r,), dev)
+    _sweep_group(1, k, e, None)
+    table = torch.tensor([[nbr.data_ptr(), w.data_ptr(), verts.data_ptr(), nbr.shape[1]]
+                          for nbr, w, verts in buckets], dtype=torch.int64).reshape(-1, 4)
+    table = table.to(dev, non_blocking=True)
+    with torch.cuda.device(dev):
+        grid = _fn("sweep_merge", "knn_sweep_levels_grid")(k)
+        warps = grid * _fn("sweep_merge", "knn_sweep_geometry")(0)
+        # a part (k keys) and a counter for each warp of the grid, the barrier's two words
+        scratch = torch.empty(warps * k, dtype=torch.int64, device=dev)
+        counts = torch.zeros(warps + 2, dtype=torch.int32, device=dev)
+        code = _fn("sweep_merge", "knn_sweep_levels")(
+            levels.data_ptr(), levels.shape[0], table.data_ptr(), ex_ids.data_ptr(),
+            ex_d.data_ptr(), vk_ids.data_ptr(), vk_d.data_ptr(), k, e, n1 - 1, grid,
+            scratch.data_ptr(), counts.data_ptr(), counts[-2:].data_ptr(), _stream(dev),
+        )
+    if levels.shape[0]:
+        _launched("sweep_merge_levels", code)
+    return grid
 
 
 # ----------------------------------------------------------------------
@@ -282,7 +346,8 @@ def frontier_relax(
 # ----------------------------------------------------------------------
 
 
-def minplus_matmul(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
+def minplus_matmul(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = True,
+                   pairs: torch.Tensor | None = None) -> torch.Tensor:
     """Tropical (min, +) product ``C = A (+,min) B``: (M, K) x (K, N) -> (M, N).
 
     Math in float32, output in ``a``'s type: float16 / bfloat16 inputs are
@@ -290,12 +355,28 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = True)
     +inf is inert and NaN propagates.
 
     CUDA kernel: ``csrc/minplus.cu`` (replaces ``minplus_matmul_pallas``).
-    128 x 128 output tiles, the tile size is the kernel's own: ragged edges
-    read as +inf inside the kernel, so nothing is padded here. Bound by
-    operations: 2*M*K*N (one add and one min per term) on the CUDA cores.
+    A first kernel marks each 128-row x 32-t slice of A and 32-t x 128-column
+    slice of B as all +inf and/or poisoned (NaN or -inf); the product kernel
+    then walks, for each 128 x 128 output tile, only the t slices whose pair
+    is not inert, tiles with the most live slices first (the order is computed
+    here from the bits, ``ref.minplus_live_counts``). Ragged edges read as
+    +inf inside the kernels, so nothing is padded here. Bound: the input's
+    bytes where most pairs are inert (the certificate's adjacency), else
+    2*M*K*N operations (one add and one min per term) on the CUDA cores.
+
+    Both kernels count as one launch of ``minplus``.
+
+    ``pairs``, an int64 (1,) tensor on the same device, gets the number of
+    (output tile, t slice) pairs walked added to it; on the CPU, the number the
+    slice bits give (what the kernel would walk).
     """
+    if pairs is not None:
+        _check("pairs", pairs, torch.int64, (1,), a.device)
     if not (a.is_cuda and use_kernel):
-        return ref.minplus_matmul_ref(a, b)
+        out = ref.minplus_matmul_ref(a, b)
+        if pairs is not None:
+            pairs += ref.minplus_live_counts(*ref.minplus_slice_bits(a, b)).sum()
+        return out
     dev = a.device
     m, kd = a.shape
     if b.ndim != 2 or b.shape[0] != kd:
@@ -306,12 +387,33 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = True)
     af, bf = a.to(torch.float32), b.to(torch.float32)
     _check("a", af, torch.float32, (m, kd), dev)
     _check("b", bf, torch.float32, (kd, n), dev)
+    geometry = _fn("minplus", "knn_minplus_geometry")
+    tile, depth, ring = geometry(0), geometry(1), geometry(2)
+    if (tile, depth) != (ref.MINPLUS_TILE, ref.MINPLUS_DEPTH):
+        raise RuntimeError(f"minplus: kernel slices {tile} x {depth}, plain bits "
+                           f"{ref.MINPLUS_TILE} x {ref.MINPLUS_DEPTH}")
+    n_t = -(-kd // depth)
+    if ring + 4 * n_t > MAX_SMEM_BYTES or -(-m // tile) > 65535:
+        raise ValueError(f"minplus_matmul: ({m}, {kd}) x ({kd}, {n}) is past what the "
+                         f"kernel takes (K <= {(MAX_SMEM_BYTES - ring) // 4 * depth}, "
+                         f"M <= {65535 * tile})")
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    a_bits = torch.empty((-(-m // tile), n_t), dtype=torch.uint8, device=dev)
+    b_bits = torch.empty((n_t, -(-n // tile)), dtype=torch.uint8, device=dev)
     if m and n:
         with torch.cuda.device(dev):
-            code = _fn("minplus", "knn_minplus")(
-                af.data_ptr(), bf.data_ptr(), out.data_ptr(), m, kd, n, _stream(dev)
+            code = _fn("minplus", "knn_minplus_bits")(
+                af.data_ptr(), bf.data_ptr(), m, kd, n, a_bits.data_ptr(), b_bits.data_ptr(),
+                _stream(dev),
             )
+            if code == 0:
+                live = ref.minplus_live_counts(a_bits, b_bits).flatten()
+                order = torch.argsort(live, descending=True, stable=True).to(torch.int32)
+                code = _fn("minplus", "knn_minplus")(
+                    af.data_ptr(), bf.data_ptr(), out.data_ptr(), m, kd, n, a_bits.data_ptr(),
+                    b_bits.data_ptr(), order.data_ptr(),
+                    None if pairs is None else pairs.data_ptr(), _stream(dev),
+                )
         _launched("minplus", code)
     return out.to(a.dtype)
 

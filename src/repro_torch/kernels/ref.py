@@ -16,6 +16,13 @@ _INT_MAX = torch.iinfo(torch.int32).max
 _INF = float("inf")
 # largest (rows, t, N) temporary minplus_matmul_ref materialises at once
 _MINPLUS_TEMP_BYTES = 1 << 30
+# K4's slices: output tiles of MINPLUS_TILE rows x MINPLUS_TILE columns,
+# t walked MINPLUS_DEPTH at a time (csrc/minplus.cu's BM = BN and BK)
+MINPLUS_TILE = 128
+MINPLUS_DEPTH = 32
+# the two bits of a slice: every entry +inf; a NaN or a -inf in it
+SLICE_ALL_PINF = 1
+SLICE_POISON = 2
 # largest (rows, N) sort retrieval_topk_ref runs at once (values + indices)
 _TOPK_TEMP_BYTES = 1 << 30
 # query and kv rows per block of flash_attention_ref
@@ -143,6 +150,41 @@ def minplus_matmul_ref(a: torch.Tensor, b: torch.Tensor):
                 rows = out[r0 : r0 + r_step]
                 torch.minimum(rows, part, out=rows)
     return out.to(a.dtype)
+
+
+def minplus_slice_bits(a: torch.Tensor, b: torch.Tensor, tile: int = MINPLUS_TILE,
+                       depth: int = MINPLUS_DEPTH):
+    """The slice bits K4's first kernel computes, as uint8 tensors:
+    A's (ceil(M/tile), ceil(K/depth)) for tile-row x depth-t slices and B's
+    (ceil(K/depth), ceil(N/tile)) for depth-t x tile-column slices, each
+    ``SLICE_ALL_PINF`` if every entry is +inf, ``| SLICE_POISON`` if one is NaN
+    or -inf. Entries past the edges count as +inf."""
+    inf = torch.tensor(_INF, dtype=torch.float32, device=a.device)
+
+    def bits(x, sr, sc):
+        r, c = x.shape
+        xp = torch.full((-(-r // sr) * sr, -(-c // sc) * sc), _INF, dtype=torch.float32,
+                        device=x.device)
+        xp[:r, :c] = x
+        blocks = xp.reshape(xp.shape[0] // sr, sr, xp.shape[1] // sc, sc)
+        pinf = (blocks == inf).all(dim=3).all(dim=1)
+        poison = (torch.isnan(blocks) | (blocks == -inf)).any(dim=3).any(dim=1)
+        return pinf.to(torch.uint8) * SLICE_ALL_PINF | poison.to(torch.uint8) * SLICE_POISON
+
+    return bits(a.to(torch.float32), tile, depth), bits(b.to(torch.float32), depth, tile)
+
+
+def minplus_live_counts(a_bits: torch.Tensor, b_bits: torch.Tensor) -> torch.Tensor:
+    """(row blocks, column blocks) int64: how many t slices of each output tile
+    pair a live A slice with a live B slice. A pair is inert iff
+    (all_pinf(A) and not poison(B)) or (all_pinf(B) and not poison(A)); since
+    all_pinf excludes poison, the count of inert slices is
+    sum_t Ap (1 - Bq) + (1 - Aq) Bp - Ap Bp, three 0/1 products (exact in
+    float32 up to 2^24 slices)."""
+    ap, aq = ((a_bits & m).to(torch.float32) / m for m in (SLICE_ALL_PINF, SLICE_POISON))
+    bp, bq = ((b_bits & m).to(torch.float32) / m for m in (SLICE_ALL_PINF, SLICE_POISON))
+    inert = ap @ (1 - bq) + (1 - aq) @ bp - ap @ bp
+    return a_bits.shape[1] - inert.round().to(torch.int64)
 
 
 def retrieval_topk_ref(scores: torch.Tensor, k: int):

@@ -7,7 +7,10 @@ the float64 host oracle ``knn_index_cons_plus`` via ``indices_equivalent``
 package and carried across with ``bngraph_from_arrays``.
 """
 import dataclasses
+import functools
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -15,6 +18,7 @@ import torch
 from repro.core.bngraph import build_bngraph
 from repro.core.construct_jax import build_knn_tables_jax
 from repro.core.construct_jax import prepare_sweep as jax_prepare_sweep
+from repro.kernels import ops as jops
 from repro.graph.generators import pick_objects, random_connected_graph, road_network
 from repro_torch.core import construct
 from repro_torch.core.bngraph import BNGraph, bngraph_from_arrays
@@ -87,8 +91,7 @@ def test_sweep_plan_layout_matches_jax(direction):
     # same neighbour widths; the reference also splits each width by row-chunk tier
     assert plan.bucket_signature() == tuple(dict.fromkeys(t for t, _ in want.bucket_signature()))
     assert plan.occupancy_levelwise == want.occupancy_levelwise
-    cells = sum(size * plan.buckets[bid].t_pad
-                for bid, size in zip(plan.level_bucket, plan.level_sizes))
+    cells = sum(size * plan.buckets[bid].t_pad for bid, _, size in plan.levels.tolist())
     live = sum(int((b.nbr >= 0).sum()) for b in plan.buckets)
     assert plan.occupancy == live / cells and plan.occupancy >= want.occupancy
     # every vertex carries the reference's schedule row, at the reference's width;
@@ -107,7 +110,7 @@ def test_sweep_plan_layout_matches_jax(direction):
     assert sum(int(b.verts.numel()) for b in plan.buckets) == g.n
     # every level names a contiguous in-bucket row range holding its vertices
     seen = []
-    for bid, off, size in zip(plan.level_bucket, plan.level_off, plan.level_sizes):
+    for bid, off, size in plan.levels.tolist():
         verts = plan.buckets[bid].verts[off : off + size].numpy()
         assert (verts < g.n).all()
         seen.extend(verts.tolist())
@@ -143,3 +146,112 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         construct.build_knn_tables(bn, objects, 3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         construct.prepare_sweep(bn, "up")
+
+
+@pytest.mark.parametrize("direction", ["up", "down"])
+def test_level_table_covers_every_level_once_in_order(direction):
+    """The device level table run_sweep hands to the one-launch sweep: one
+    (bucket, first row, rows) entry per level, in level order; within a
+    bucket its levels' row ranges follow each other and cover it once."""
+    bn = carry_bn(build_bngraph(road_network(12, 12, seed=1)))
+    plan = construct.prepare_sweep(bn, direction, device="cpu")
+    assert plan.levels.dtype == torch.int32 and tuple(plan.levels.shape) == (plan.num_levels, 3)
+    assert [size for _, _, size in plan.levels.tolist()] == list(plan.level_sizes)
+    next_row = [0] * len(plan.buckets)
+    for bid, off, size in plan.levels.tolist():
+        assert off == next_row[bid] and size > 0
+        next_row[bid] += size
+    assert next_row == [int(b.verts.numel()) for b in plan.buckets]
+    # every vertex once, in the reference's level order
+    order = np.concatenate([plan.buckets[bid].verts[off : off + size].numpy()
+                            for bid, off, size in plan.levels.tolist()])
+    np.testing.assert_array_equal(order, np.concatenate(bn.level_members(direction)))
+
+
+def test_run_sweep_walks_the_level_table():
+    """The one call follows plan.levels: cut the table's last level and that
+    level's rows are never written."""
+    g = road_network(9, 9, seed=2)
+    objects = pick_objects(g.n, 0.3, seed=2)
+    bn = carry_bn(build_bngraph(g))
+    plan = construct.prepare_sweep(bn, "up", device="cpu")
+    ex_ids, ex_d = construct.object_extras(bn.n, objects, 4, device="cpu")
+    full = construct.run_sweep(plan, ex_ids, ex_d, 4)
+    cut = construct.run_sweep(dataclasses.replace(plan, levels=plan.levels[:-1]), ex_ids, ex_d, 4)
+    bid, off, size = plan.levels[-1].tolist()
+    last = plan.buckets[bid].verts[off : off + size].long()
+    assert (cut[0][last] == -1).all() and (full[0][last] >= 0).any()
+    keep = torch.ones(bn.n + 1, dtype=torch.bool)
+    keep[last] = False
+    assert torch.equal(cut[0][keep], full[0][keep]) and torch.equal(cut[1][keep], full[1][keep])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_many_level_sweep_matches_the_jax_level_loop(seed):
+    """A synthetic sweep of 40 levels of varied size and width (rows read
+    rows of earlier levels, mostly the one before), packed by pack_sweep and
+    run in one call, against the JAX package's sweep_merge applied level by
+    level."""
+    rng = np.random.default_rng(seed)
+    n, k = 700, 5
+    perm = rng.permutation(n).astype(np.int32)
+    sizes = rng.integers(1, 30, size=40)
+    levels, done, at = [], np.empty(0, np.int32), 0
+    for size in sizes:
+        verts = perm[at : at + size]
+        at += size
+        width = int(rng.choice([1, 3, 6, 17, 40]))
+        nbr = np.full((size, width), -1, np.int32)
+        if done.size:
+            recent = done[-60:]
+            pick = np.where(rng.random((size, width)) < 0.7,
+                            rng.choice(recent, size=(size, width)),
+                            rng.choice(done, size=(size, width)))
+            nbr = np.where(rng.random((size, width)) < 0.8, pick, -1).astype(np.int32)
+        w = np.where(nbr >= 0, rng.integers(0, 6, size=nbr.shape), np.inf).astype(np.float32)
+        first = np.argsort(nbr < 0, axis=1, kind="stable")  # each row's neighbours first
+        levels.append((verts, np.take_along_axis(nbr, first, 1), np.take_along_axis(w, first, 1)))
+        done = np.concatenate([done, verts])
+    ex_ids = np.full((n + 1, k), -1, np.int32)
+    ex_d = np.full((n + 1, k), np.inf, np.float32)
+    obj = rng.random(n) < 0.3
+    ex_ids[:n, 0] = np.where(obj, np.arange(n), -1)
+    ex_d[:n, 0] = np.where(obj, 0.0, np.inf)
+    plan = construct.pack_sweep(n, "up", levels, device="cpu")
+    assert plan.num_levels == 40 and len(plan.buckets) >= 3
+    got = construct.run_sweep(plan, torch.from_numpy(ex_ids), torch.from_numpy(ex_d), k)
+    # the reference, one level a step, each level padded to (30, 40): padded
+    # rows aim at the dummy row n, padded slots are (-1, +inf)
+    step = jax.jit(functools.partial(jops.sweep_merge, k=k, use_pallas=False))
+    ids = jnp.full((n + 1, k), -1, jnp.int32)
+    d = jnp.full((n + 1, k), jnp.inf, jnp.float32)
+    for verts, nbr, w in levels:
+        p_verts = np.full(30, n, np.int32)
+        p_nbr = np.full((30, 40), -1, np.int32)
+        p_w = np.full((30, 40), np.inf, np.float32)
+        p_verts[: verts.size] = verts
+        p_nbr[: verts.size, : nbr.shape[1]] = nbr
+        p_w[: verts.size, : nbr.shape[1]] = w
+        ids, d = step(jnp.asarray(p_nbr), jnp.asarray(p_verts), jnp.asarray(p_w),
+                      jnp.asarray(ex_ids), jnp.asarray(ex_d), ids, d)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ids))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(d))
+    assert (got[0].numpy()[:n] >= 0).mean() > 0.3
+
+
+def test_pack_sweep_refuses_a_neighbour_past_its_rows_width():
+    """pack_sweep copies a level's first t_pad columns (its bucket's width,
+    from the rows' neighbour counts): a neighbour standing further right
+    would be dropped, so it raises; empty slots between neighbours are
+    fine."""
+    verts = np.array([0, 1], np.int32)
+    nbr = np.array([[-1, -1, -1, -1, -1, 2], [3, -1, -1, -1, -1, -1]], np.int32)
+    w = np.where(nbr >= 0, 1.0, np.inf).astype(np.float32)
+    with pytest.raises(ValueError, match="past column 4"):
+        construct.pack_sweep(5, "up", [(verts, nbr, w)], device="cpu")
+    holes = np.array([[-1, 2, -1, 4], [3, -1, -1, -1]], np.int32)
+    plan = construct.pack_sweep(5, "up", [(verts, holes, np.ones((2, 4), np.float32))],
+                                device="cpu")
+    assert plan.bucket_signature() == (4,)
+    np.testing.assert_array_equal(plan.buckets[0].nbr.numpy(), holes)
+    np.testing.assert_array_equal(plan.buckets[0].w.numpy(), np.where(holes >= 0, 1.0, np.inf))

@@ -16,6 +16,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.sweep_merge import kround_merge as jax_kround_merge
 from repro_torch.kernels import ops, ref
 
 
@@ -141,13 +142,16 @@ def _sweep_case(rng, *, n, chunk, t, k, e=None, pad_rows=0):
 
 
 def _sweep_both_forms(case, k):
-    """The port's in-place result (full tables) and its tile result."""
+    """The port's in-place result (full tables: the rows as one level of
+    ``sweep_merge_levels``) and its tile result (``sweep_merge``)."""
     args = _t(*case)
-    tile = ops.sweep_merge(*args, k, inplace=False)
+    tile = ops.sweep_merge(*args, k)
     np.testing.assert_array_equal(args[5].numpy(), case[5])  # tables only read
     np.testing.assert_array_equal(args[6].numpy(), case[6])
-    full = ops.sweep_merge(*_t(*case), k, inplace=True)
-    return full, tile
+    nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d = _t(*case)
+    one_level = torch.tensor([[0, 0, verts.shape[0]]], dtype=torch.int32)
+    ops.sweep_merge_levels([(nbr, w, verts)], one_level, ex_ids, ex_d, vk_ids, vk_d, k)
+    return (vk_ids, vk_d), tile
 
 
 @pytest.mark.parametrize("chunk,t,k,pad_rows", [
@@ -231,9 +235,90 @@ def test_sweep_merge_tile_form_reads_pre_round_rows():
     case[0] = rng.choice(verts, size=(6, 3)).astype(np.int32)  # neighbours ARE targets
     case[2] = rng.uniform(1, 5, (6, 3)).astype(np.float32)
     case[3], case[4] = case[5], case[6]                        # extras = live tables
-    tile = ops.sweep_merge(*_t(*case), k, inplace=False)
+    tile = ops.sweep_merge(*_t(*case), k)
     want = jops.sweep_merge(*_j(*case), k, use_pallas=False)
     _eq(tile, (np.asarray(want[0])[verts], np.asarray(want[1])[verts]))
+
+
+def _merge_in_groups(case, k, t_group, parts=1):
+    """K2's selection, in plain torch: neighbours walked in groups of
+    ``t_group``; part p (a warp of ``csrc/sweep_merge.cu``) takes groups p,
+    p + parts, ..., each merged (``kround_merge``) together with the row's
+    extras (part 0's first group) or the part's running k best (its later
+    groups); then the parts' k-lists are merged once more, as warp 0 of a
+    block does for a wide row of the one-launch sweep (parts = 8)."""
+    nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d = _t(*case)
+    e = ex_ids.shape[1]
+    n_groups = max(1, -(-nbr.shape[1] // t_group))
+    out = []
+    for p in range(min(parts, n_groups)):
+        run = None
+        for g in range(p, n_groups, parts):
+            j = slice(g * t_group, (g + 1) * t_group)
+            c_ids, c_d = ref.sweep_candidates(nbr[:, j], verts, w[:, j], ex_ids, ex_d,
+                                              vk_ids, vk_d)
+            c_ids, c_d = c_ids[:, : c_ids.shape[1] - e], c_d[:, : c_d.shape[1] - e]
+            if run is not None:
+                c_ids, c_d = torch.cat([c_ids, run[0]], 1), torch.cat([c_d, run[1]], 1)
+            elif p == 0:
+                rows = verts.long()
+                c_ids = torch.cat([c_ids, ex_ids[rows]], 1)
+                c_d = torch.cat([c_d, torch.where(ex_ids[rows] < 0, np.inf, ex_d[rows])], 1)
+            run = ref.kround_merge(c_ids, c_d, k)
+        out.append(run)
+    if len(out) == 1:
+        return out[0]
+    return ref.kround_merge(torch.cat([o[0] for o in out], 1), torch.cat([o[1] for o in out], 1), k)
+
+
+def _tie_case(seed, *, n=60, chunk=24, t=7, k=6):
+    """Ties everywhere: ids from a range of 12, integer distances 0-4, integer
+    weights 0-2, each table row sorted by distance as construction leaves it;
+    and row 0's first neighbour carries the rounding tie: distances 1e-8 <
+    2e-8 (ids 9, then 3) both become 1.0 after + w = 1.0, so the later entry
+    wins the tie by its smaller id (row 0 has no other neighbour or extra)."""
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(-1, n // 2, size=(chunk, t)).astype(np.int32)
+    verts = rng.choice(np.arange(n // 2, n), size=chunk, replace=False).astype(np.int32)
+    w = rng.integers(0, 3, size=(chunk, t)).astype(np.float32)
+    w[nbr < 0] = np.inf
+    ex_ids = rng.integers(-1, 12, size=(n + 1, k)).astype(np.int32)
+    ex_d = rng.integers(0, 5, size=(n + 1, k)).astype(np.float32)
+    vk_ids = rng.integers(-1, 12, size=(n + 1, k)).astype(np.int32)
+    vk_d = np.sort(rng.integers(0, 5, size=(n + 1, k)), axis=1).astype(np.float32)
+    nbr[0], w[0] = -1, np.inf
+    nbr[0, 0], w[0, 0] = 1, 1.0
+    vk_ids[1, :2], vk_d[1, :2] = [9, 3], [1e-8, 2e-8]
+    vk_ids[1, 2:][np.isin(vk_ids[1, 2:], [3, 9])] = -1
+    vk_d[1, 2:] = np.maximum(vk_d[1, 2:], 2)
+    ex_ids[verts[0]] = -1
+    for x_ids, x_d in ((ex_ids, ex_d), (vk_ids, vk_d)):
+        x_d[x_ids < 0] = np.inf
+        x_ids[n], x_d[n] = -1, np.inf
+    return nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("t_group,parts", [(1, 1), (2, 1), (3, 1), (7, 1), (1, 8), (2, 3)])
+def test_sweep_selection_in_groups_matches_jax_kround_merge(seed, t_group, parts):
+    case = _tie_case(seed)
+    k = case[5].shape[1]
+    got = _merge_in_groups(case, k, t_group, parts)
+    want = tuple(np.asarray(x)[case[1]] for x in jref.sweep_merge_ref(*_j(*case), k))
+    _eq(got, want)
+    c_ids, c_d = ref.sweep_candidates(*_t(*case))
+    _eq(got, jax_kround_merge(jnp.asarray(c_ids.numpy()), jnp.asarray(c_d.numpy()), k))
+    _eq(ops.sweep_merge(*_t(*case), k, t_group=t_group), want)
+
+
+def test_sweep_selection_rounding_tie_goes_to_the_smaller_id():
+    case = _tie_case(3)
+    assert np.float32(1.0) + np.float32(1e-8) == np.float32(1.0) + np.float32(2e-8)
+    got_i, got_d = _merge_in_groups(case, 6, 1, parts=8)
+    want = jref.sweep_merge_ref(*_j(*case), 6)
+    _eq((got_i, got_d), tuple(np.asarray(x)[case[1]] for x in want))
+    np.testing.assert_array_equal(got_i.numpy()[0, :2], [3, 9])
+    np.testing.assert_array_equal(got_d.numpy()[0, :2], [1.0, 1.0])
 
 
 # ---------------------------------------------------------------------------
@@ -376,5 +461,6 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.retrieval_topk(torch.from_numpy(d), 3)
     q = torch.zeros((1, 4, 2, 64))
     ops.flash_attention(q, q[:, :, :1], q[:, :, :1], causal=True)
-    assert ops.launches() == {"topk_merge": 0, "sweep_merge": 0, "frontier_relax": 0,
-                              "minplus": 0, "retrieval_topk": 0, "flash_attention": 0}
+    assert ops.launches() == {"topk_merge": 0, "sweep_merge": 0, "sweep_merge_levels": 0,
+                              "frontier_relax": 0, "minplus": 0, "retrieval_topk": 0,
+                              "flash_attention": 0}

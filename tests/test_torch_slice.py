@@ -133,8 +133,9 @@ def test_importing_the_port_imports_neither_jax_nor_the_jax_package():
 
 def test_no_port_source_mentions_a_jax_import():
     pattern = re.compile(r"^\s*(import jax|from jax|import repro\b(?!_)|from repro[. ])", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tools", "k6_planted_faults.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "tools", name)
+        for name in ("k6_planted_faults.py", "k2_k4_planted_faults.py", "build_sweep_ab.py")]
     for root, _, names in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith((".py", ".cu", ".cuh"))]
     assert len(files) > 15

@@ -10,6 +10,9 @@ min has no order to differ in, so nothing rounds differently. The CUDA kernel
 itself cannot run without a GPU; ``chip_smoke.py`` holds it against this same
 plain version on the card.
 """
+import importlib.util
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +35,7 @@ from repro_torch.core.verify import (
 from repro_torch.graph import generators
 from repro_torch.kernels import ops, ref
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(32, 32, 32), (70, 90, 130), (128, 256, 128)]
 
 
@@ -129,6 +133,143 @@ def test_minplus_on_cpu_tensors_counts_no_launch():
     _torch_minplus(a, b)
     _torch_minplus(a, b, use_kernel=False)
     assert ops.launches()["minplus"] == 0
+
+
+# ---------------------------------------------------------------------------
+# minplus: the kernel's slice bits and pair walk, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _inert(x, y, predicate="kernel"):
+    """Which (A slice, B slice) pairs K4 skips. ``"all_pinf_only"`` is the
+    wrong predicate a kernel must not use: it skips +inf facing NaN or -inf."""
+    ap, aq = (x & ref.SLICE_ALL_PINF) > 0, (x & ref.SLICE_POISON) > 0
+    bp, bq = (y & ref.SLICE_ALL_PINF) > 0, (y & ref.SLICE_POISON) > 0
+    if predicate == "all_pinf_only":
+        return ap | bp
+    return (ap & ~bq) | (bp & ~aq)
+
+
+def _pair_walk(a, b, tile, depth, predicate="kernel"):
+    """K4's algorithm on the CPU: the slice bits, then for each output tile the
+    min over its live t slices only; a tile with none stays +inf. Returns the
+    product and the number of (tile, t slice) pairs walked."""
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    a_bits, b_bits = ref.minplus_slice_bits(at, bt, tile, depth)
+    m, kd = a.shape
+    n = b.shape[1]
+    out = torch.full((m, n), np.inf, dtype=torch.float32)
+    walked = 0
+    for rb in range(a_bits.shape[0]):
+        for cb in range(b_bits.shape[1]):
+            live = torch.nonzero(~_inert(a_bits[rb], b_bits[:, cb], predicate)).flatten()
+            walked += live.numel()
+            if not live.numel():
+                continue
+            ts = torch.cat([torch.arange(t * depth, min(kd, (t + 1) * depth)) for t in live])
+            rows, cols = slice(rb * tile, (rb + 1) * tile), slice(cb * tile, (cb + 1) * tile)
+            part = at[rows][:, ts, None] + bt[ts][:, cols][None]
+            out[rows, cols] = torch.amin(part, dim=1)
+    return out.numpy(), walked
+
+
+def _block_sparse(m, k, n, tile, depth, seed):
+    """+inf almost everywhere, a third of the slices holding finite entries,
+    and the traps: an all-+inf A slice facing a B slice with one -inf, another
+    facing a B slice with one NaN, an A slice with a single finite entry, and
+    edges no tile or slice divides (the caller's shapes)."""
+    rng = np.random.default_rng(seed)
+    a = np.full((m, k), np.inf, np.float32)
+    b = np.full((k, n), np.inf, np.float32)
+    for x, (sr, sc) in ((a, (tile, depth)), (b, (depth, tile))):
+        for r0 in range(0, x.shape[0], sr):
+            for c0 in range(0, x.shape[1], sc):
+                if rng.random() < 0.33:
+                    blk = x[r0 : r0 + sr, c0 : c0 + sc]
+                    fill = rng.random(blk.shape) < 0.3
+                    blk[fill] = rng.integers(0, 40, size=int(fill.sum()))
+    # trap 1: A slice (row block 0, t slice 1) all +inf; B slice (1, column block 0) one -inf
+    a[:tile, depth : 2 * depth] = np.inf
+    b[depth + 1, 3] = -np.inf
+    # trap 2: A slice (1, 2) all +inf; B slice (2, column block 1) one NaN
+    a[tile : 2 * tile, 2 * depth : 3 * depth] = np.inf
+    b[2 * depth + 2, tile + 5] = np.nan
+    # a single finite entry in A slice (2, 0)
+    a[2 * tile : 3 * tile, :depth] = np.inf
+    a[2 * tile + 7, 3] = 1.5
+    return a, b
+
+
+@pytest.mark.parametrize("tile,depth,shape", [
+    (8, 4, (29, 23, 31)), (16, 8, (53, 41, 37)), (128, 32, (300, 97, 270)),
+])
+def test_minplus_pair_walk_matches_jax_ref(tile, depth, shape):
+    a, b = _block_sparse(*shape, tile, depth, seed=sum(shape))
+    want = _jax_ref(a, b)
+    got, walked = _pair_walk(a, b, tile, depth)
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(want).any() and (want == -np.inf).any() and np.isfinite(want).any()
+    # the traps are live: skipping on all-+inf alone loses the NaN / -inf terms
+    wrong, skipped_more = _pair_walk(a, b, tile, depth, "all_pinf_only")
+    assert not np.array_equal(wrong, want) and skipped_more < walked
+    # the live count the wrapper orders tiles by, and the count a product walks
+    bits = ref.minplus_slice_bits(torch.from_numpy(a), torch.from_numpy(b), tile, depth)
+    assert int(ref.minplus_live_counts(*bits).sum()) == walked
+    n_slices = -(-shape[1] // depth)
+    assert walked < -(-shape[0] // tile) * -(-shape[2] // tile) * n_slices
+
+
+def test_minplus_slice_bits_count_ragged_edges_as_pinf():
+    a = np.full((10, 9), np.inf, np.float32)
+    a[9, 8] = -np.inf                    # poison in the last, ragged slice
+    a[0, 0] = np.nan
+    b = np.full((9, 5), np.inf, np.float32)
+    b[8, 4] = 2.0
+    a_bits, b_bits = ref.minplus_slice_bits(torch.from_numpy(a), torch.from_numpy(b), 8, 4)
+    assert a_bits.tolist() == [[2, 1, 1], [1, 1, 2]]
+    assert b_bits.tolist() == [[1], [1], [0]]
+
+
+def test_minplus_pairs_on_the_cpu_count_the_live_pairs():
+    a, b = _block_sparse(300, 97, 270, 128, 32, seed=1)
+    pairs = torch.zeros(1, dtype=torch.int64)
+    got = ops.minplus_matmul(torch.from_numpy(a), torch.from_numpy(b), pairs=pairs)
+    np.testing.assert_array_equal(got.numpy(), _jax_ref(a, b))
+    assert int(pairs) == _pair_walk(a, b, 128, 32)[1]
+
+
+def test_minplus_pair_walk_on_the_grid10_adjacency_matches_jax():
+    jbn = jax_build_bngraph(jgen.road_network(10, 10, seed=0))
+    a = np.asarray(jax_dense_adjacency(jbn))
+    want = jops.minplus_matmul(jnp.asarray(a), jnp.asarray(a), block_m=32, block_n=32,
+                               block_k=32)
+    np.testing.assert_array_equal(a, bngraph_dense_adjacency(
+        build_bngraph(generators.road_network(10, 10, seed=0))))
+    for tile, depth in ((128, 32), (16, 8)):
+        got, walked = _pair_walk(a, a, tile, depth)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        np.testing.assert_array_equal(got, _jax_ref(a, a))
+
+
+@pytest.mark.parametrize("fault", ["intact", "minplus_pinf_only", "sweep_no_barrier"])
+def test_k2_k4_planted_faults_apply_to_the_kernels(fault, tmp_path):
+    """Each planted fault of tools/k2_k4_planted_faults.py finds its text in
+    its kernel's source once, and edits only the copy."""
+    spec = importlib.util.spec_from_file_location(
+        "k2_k4_planted_faults", os.path.join(REPO, "tools", "k2_k4_planted_faults.py"))
+    pf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pf)
+    source, edits, must_fail = pf.FAULTS[fault]
+    assert (must_fail is None) == (fault == "intact") and must_fail in (None, *pf.CHECKS)
+    for name in ("minplus.cu", "sweep_merge.cu"):
+        os.makedirs(tmp_path / pf.CSRC, exist_ok=True)
+        (tmp_path / pf.CSRC / name).write_text(open(os.path.join(REPO, pf.CSRC, name)).read())
+    pf.plant(str(tmp_path), source, edits)
+    for name in ("minplus.cu", "sweep_merge.cu"):
+        original = open(os.path.join(REPO, pf.CSRC, name)).read()
+        planted = (tmp_path / pf.CSRC / name).read_text()
+        assert (planted == original) == (name != source)
+        assert planted.count("planted fault") == (name == source)
 
 
 # ---------------------------------------------------------------------------
