@@ -16,7 +16,14 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    tile (its repair-round form), in place as one level of its one-launch
    sweep, and as one launch for a whole synthetic sweep of 200 levels
    (1-20,000 rows, 1-200 neighbours) at n = 2^24, against the plain version
-   level by level;
+   level by level; K1 also at both sides of each of its register
+   boundaries (C = 128/129, 256/257, 512/513, 768/769), at C = 4,000 and
+   30,000 (past what its first design's shared memory held), and timed at
+   the flush's wide shape C = k + 512; K3 through both of its entries (the
+   JAX package's signature and the engine's fused ``frontier_relax_rows``,
+   tile and changed mask) at B = 1, 2, 64, 475, 476 and T = 8, 32, 128, 200,
+   with 1,000 receivers too (a warp a (row, column chunk)), the receivers'
+   rows of the matrix unchanged after the kernels;
    ``minplus`` at 4096^3, at a shape whose edges are not multiples of its
    tile, with +inf rows and columns and one NaN, on block-sparse operands
    whose all-+inf slices face a -inf or a NaN (its pair count held to the
@@ -45,7 +52,8 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    plain versions takes the same traffic, and after every flush the two
    engines' tables must be equal bit for bit. Each sweep is timed alone, and
    a fourth flush runs under ``torch.profiler`` (and CUDA events around each
-   kernel call) for K1-K3's own device time at the flush's shapes;
+   kernel call) for K1-K3's own device time at the flush's shapes, with each
+   K1 and K3 call's shape and its bound there;
 7. ``durability`` on the main path's engine: ``save`` -> ``load_engine``
    (tables equal), a journaled flush, a second batch killed mid-repair,
    recovery from the artifact plus the journal, held equal to an uncrashed
@@ -243,6 +251,31 @@ def sweep_schedule(rng, n: int, s: int, t: int, pads: int):
     return nbr, verts, w
 
 
+def rows_differ(got, want) -> int:
+    """Entries at which two (ids, dists) results differ, in either part."""
+    return int(((got[0] != want[0]) | ~((got[1] == want[1]) | (torch.isnan(got[1])
+                                                            & torch.isnan(want[1])))).sum())
+
+
+def topk_held(ids, d, k, what: str):
+    """K1 on (ids, d) against its plain version, exactly; returns the result."""
+    from repro_torch.kernels import ops, ref
+
+    got = ops.topk_merge(ids, d, k)
+    want = ref.topk_merge_ref(ids, d, k)
+    torch.cuda.synchronize()
+    bad = rows_differ(got, want)
+    require(bad == 0 and got[1].dtype == want[1].dtype,
+            f"topk_merge differs from its plain version {what}: {bad} of {want[0].numel()} entries")
+    return got
+
+
+def topk_bound(b: int, c: int, k: int) -> tuple[float, str]:
+    """Each candidate read once (8 bytes), each output written once; one
+    compare a candidate."""
+    return bound(b * c * 8 + b * k * 8, 1.0 * b * c)
+
+
 def check_topk_merge(cfg, dev, results) -> None:
     from repro_torch.kernels import ops, ref
 
@@ -255,37 +288,43 @@ def check_topk_merge(cfg, dev, results) -> None:
     ids[bad] = -1
     ids[:64] = -1                 # all-invalid rows
     ids[64:128, 8:] = -1          # fewer distinct ids than k
-    got = ops.topk_merge(ids, d, k)
-    want = ref.topk_merge_ref(ids, d, k)
-    torch.cuda.synchronize()
-    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-            "topk_merge differs from its plain version")
-    err = max_abs_err(got[1], want[1])
+    got = topk_held(ids, d, k, "at the usa shape")
+    err = max_abs_err(got[1], ref.topk_merge_ref(ids, d, k)[1])
     # C < k and float16 distances
-    small = ops.topk_merge(ids[:4096, :7].contiguous(), d[:4096, :7].contiguous(), k)
-    small_w = ref.topk_merge_ref(ids[:4096, :7], d[:4096, :7], k)
-    require(torch.equal(small[0], small_w[0]) and torch.equal(small[1], small_w[1]),
-            "topk_merge differs at C < k")
-    h = d[:4096].to(torch.float16)
-    half = ops.topk_merge(ids[:4096].contiguous(), h, k)
-    half_w = ref.topk_merge_ref(ids[:4096], h, k)
-    require(half[1].dtype == torch.float16 and torch.equal(half[0], half_w[0])
-            and torch.equal(half[1], half_w[1]), "topk_merge differs on float16")
-    # the purge+merge of a flush: the k own entries plus hundreds of insert candidates
-    wide_ids = torch.randint(-1, 600, (b, k + 512), generator=gen, device=dev, dtype=torch.int32)
-    wide_d = torch.randint(0, 256, (b, k + 512), generator=gen, device=dev).to(torch.float32)
-    wide = ops.topk_merge(wide_ids, wide_d, k)
-    wide_w = ref.topk_merge_ref(wide_ids, wide_d, k)
-    require(torch.equal(wide[0], wide_w[0]) and torch.equal(wide[1], wide_w[1]),
-            "topk_merge differs at C = k + 512")
-    del wide_ids, wide_d, wide, wide_w
+    topk_held(ids[:4096, :7].contiguous(), d[:4096, :7].contiguous(), k, "at C < k")
+    half = topk_held(ids[:4096].contiguous(), d[:4096].to(torch.float16), k, "on float16")
+    require(half[1].dtype == torch.float16, "topk_merge did not narrow float16 back")
+    # every width on both sides of a register boundary (4 | 8 | 16 | 24 keys a
+    # lane | groups of 768 - k), several groups, and a C past what the first
+    # design's shared memory held (~29,000): 4,096 rows each, ids from a range
+    # of C / 4 so that ids repeat and distances tie
+    cases = {}
+    for cw in (128, 129, 256, 257, 512, 513, 768, 769, 4000, 30000):
+        rows_w = 4096 if cw <= 4000 else 64
+        w_ids = torch.randint(-1, cw // 4, (rows_w, cw), generator=gen, device=dev,
+                              dtype=torch.int32)
+        w_d = torch.randint(0, 64, (rows_w, cw), generator=gen, device=dev).to(torch.float32)
+        topk_held(w_ids, w_d, k, f"at C = {cw}")
+        cases[cw] = {"rows": rows_w, "regs_group": ops.topk_plan(cw, k)}
+    # the purge+merge of a flush: the k own entries plus hundreds of insert
+    # candidates, at the full batch; checked and timed
+    cw = k + 512
+    wide_ids = torch.randint(-1, 600, (b, cw), generator=gen, device=dev, dtype=torch.int32)
+    wide_d = torch.randint(0, 256, (b, cw), generator=gen, device=dev).to(torch.float32)
+    topk_held(wide_ids, wide_d, k, "at C = k + 512")
+    wide_bms, wide_by = topk_bound(b, cw, k)
+    wide = {"shape": {"B": b, "C": cw, "k": k},
+            "ms": cuda_ms(lambda: ops.topk_merge(wide_ids, wide_d, k)),
+            "plain_ms": cuda_ms(lambda: ref.topk_merge_ref(wide_ids, wide_d, k), reps=3),
+            "bound_ms": wide_bms, "bound_by": wide_by, "regs_group": ops.topk_plan(cw, k)}
+    del wide_ids, wide_d
     ms = cuda_ms(lambda: ops.topk_merge(ids, d, k))
     plain_ms = cuda_ms(lambda: ref.topk_merge_ref(ids, d, k))
-    # operations: one compare a candidate
-    bms, by = bound(b * c * 8 + b * k * 8, 1.0 * b * c)
+    bms, by = topk_bound(b, c, k)
     results["topk_merge"] = {
         "shape": {"B": b, "C": c, "k": k}, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "regs_group": ops.topk_plan(c, k), "wide": wide, "widths_checked": cases,
     }
 
 
@@ -440,11 +479,12 @@ def check_sweep_levels(cfg, dev, results, ex_ids, ex_d, rng) -> None:
     }
 
 
-def frontier_case(dev, seed: int, n: int, r: int, t: int, b: int):
+def frontier_case(dev, seed: int, n: int, r: int, t: int, b: int, idle: bool = False):
     """One relaxation round's inputs: receivers that neighbour each other
     (half of the neighbours are receivers themselves), ~20% padded slots,
     padded receiver rows aimed at row n, sources that ARE neighbours (the
-    gate's second arm) and three padded source columns."""
+    gate's second arm) and up to three padded source columns; with ``idle``,
+    a few real receivers whose every slot is padded."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(seed)
     dist = torch.rand((n + 1, b), generator=gen, device=dev) * 100.0
@@ -463,42 +503,105 @@ def frontier_case(dev, seed: int, n: int, r: int, t: int, b: int):
     pads = max(1, r // 256)
     rows_h[-pads:] = n
     nbr_h[-pads:] = -1
+    if idle:
+        nbr_h[: max(1, r // 512)] = -1
     w_h[nbr_h < 0] = np.inf
-    src_h = nbr_h[:b, 0].copy()
+    src_h = nbr_h[-pads - b : -pads, 0].copy() if idle else nbr_h[:b, 0].copy()
     src_h[src_h < 0] = 5
-    src_h[-3:] = -1
+    src_pads = min(3, b - 1)
+    if src_pads:
+        src_h[-src_pads:] = -1
+        dist[:, -src_pads:] = float("inf")
     nbr, rows, w, src = (torch.from_numpy(x).to(dev) for x in (nbr_h, rows_h, w_h, src_h))
-    dist[:, -3:] = float("inf")
     return nbr, rows, w, dist, kth, src
+
+
+def bucket_tables(nbr, rows, w, n1: int):
+    """The (n+1, T) bucket tables the engine's fused entry reads: receiver
+    rows' schedules at their rows, every other row (the dummy row too) pads."""
+    t = nbr.shape[1]
+    nbr_tab = torch.full((n1, t), -1, dtype=torch.int32, device=nbr.device)
+    w_tab = torch.full((n1, t), float("inf"), dtype=torch.float32, device=nbr.device)
+    nbr_tab[rows.long()] = nbr
+    w_tab[rows.long()] = w
+    return nbr_tab, w_tab
+
+
+def relax_held(case, tables, what: str) -> dict:
+    """Both K3 entries against their plain versions on one case, exactly:
+    the JAX-shaped ``frontier_relax`` and the engine's ``frontier_relax_rows``
+    (tile and changed mask). The plain versions run first, on the pristine
+    matrix, and the receivers' rows of ``dist`` must be unchanged after both
+    kernels (Jacobi: the kernel only reads it)."""
+    from repro_torch.kernels import ops, ref
+
+    nbr, rows, w, dist, kth, src = case
+    idx = rows.long()
+    before = dist[idx].clone()
+    want = ref.frontier_relax_ref(*case)
+    want_changed = (want < before).any(dim=1)
+    got = ops.frontier_relax(*case)
+    got_r, changed = ops.frontier_relax_rows(*tables, rows, dist, kth, src)
+    torch.cuda.synchronize()
+    counts = {"tile": int((got != want).sum()), "rows_tile": int((got_r != want).sum()),
+              "changed": int((changed != want_changed).sum()),
+              "dist_written": int((dist[idx] != before).sum())}
+    r, t = nbr.shape
+    require(not any(counts.values()),
+            f"frontier_relax differs from its plain version {what} (R={r}, T={t}, "
+            f"B={dist.shape[1]}): entries differing {counts} of {want.numel()}")
+    require(bool(want_changed.any()), f"frontier_relax case {what} relaxed nothing")
+    return {"R": r, "T": t, "B": dist.shape[1],
+            "vec_split": ops.frontier_plan(r, dist.shape[1], dist.data_ptr(),
+                                           ops.resident_warps(dist.device)),
+            "changed_rows": int(want_changed.sum())}
+
+
+def frontier_bound(nbr, b: int) -> tuple[float, str]:
+    """The schedule (R*T*8), the receivers' ids, the distinct neighbour rows
+    (B*4 + a 4-byte bound each), the own rows and src read once, the tile
+    written once; 3 operations per valid slot and column."""
+    r, t = nbr.shape
+    valid = nbr >= 0
+    distinct = int(torch.unique(nbr[valid]).numel())
+    nbytes = r * t * 8 + r * 4 + distinct * (b * 4 + 4) + r * b * 4 + b * 4 + r * b * 4
+    return bound(nbytes, 3.0 * int(valid.sum()) * b)
 
 
 def check_frontier_relax(cfg, dev, results) -> None:
     from repro_torch.kernels import ops, ref
 
-    # a flush of some hundred inserts: more source columns than a block has
-    # threads (so each thread walks several), not a multiple of the warp
-    case = frontier_case(dev, 14, 1 << 18, 16384, 128, 475)
-    require(torch.equal(ops.frontier_relax(*case), ref.frontier_relax_ref(*case)),
-            "frontier_relax differs from its plain version at B = 475")
-    del case
+    # flush-sized cases: one source column, B not a multiple of 4 without the
+    # engine's padding (475) and with it (476), bucket widths 8 / 32 / 128 and
+    # 200 (seven 32-slot passes), receivers whose every slot is padded, and
+    # receivers few enough that each (row, column chunk) gets a warp of its
+    # own (1,000 rows: 4 chunks of 128 columns at B = 476, 15 of 32 at 475)
+    cases = []
+    for seed, r, t, b in ((14, 16384, 128, 475), (15, 16384, 8, 1), (16, 16384, 32, 476),
+                          (17, 16384, 200, 64), (18, 16384, 128, 2), (19, 1000, 200, 476),
+                          (20, 1000, 200, 475)):
+        case = frontier_case(dev, seed, 1 << 18, r, t, b, idle=True)
+        cases.append(relax_held(case, bucket_tables(case[0], case[1], case[2], (1 << 18) + 1),
+                                f"in flush-sized case {len(cases)}"))
+        del case
+    torch.cuda.empty_cache()
 
     n, r, t, b = cfg.n_vertices, cfg.level_batch, cfg.tau, 64
-    nbr, rows, w, dist, kth, src = frontier_case(dev, 13, n, r, t, b)
-    got = ops.frontier_relax(nbr, rows, w, dist, kth, src)
-    want = ref.frontier_relax_ref(nbr, rows, w, dist, kth, src)
-    torch.cuda.synchronize()
-    require(torch.equal(got, want), "frontier_relax differs from its plain version")
-    require(bool((got < dist[rows.long()]).any()), "frontier_relax case relaxed nothing")
-    err = max_abs_err(got, want)
-    ms = cuda_ms(lambda: ops.frontier_relax(nbr, rows, w, dist, kth, src))
-    plain_ms = cuda_ms(lambda: ref.frontier_relax_ref(nbr, rows, w, dist, kth, src))
-    valid = nbr >= 0
-    distinct = int(torch.unique(nbr[valid]).numel())
-    nbytes = r * t * 8 + r * 4 + distinct * (b * 4 + 4) + r * b * 4 + b * 4 + r * b * 4
-    bms, by = bound(nbytes, 3.0 * int(valid.sum()) * b)
+    case = frontier_case(dev, 13, n, r, t, b)
+    nbr, rows, w, dist, kth, src = case
+    tables = bucket_tables(nbr, rows, w, n + 1)
+    cases.append(relax_held(case, tables, "at the usa shape"))
+    got = ops.frontier_relax(*case)
+    err = max_abs_err(got, ref.frontier_relax_ref(*case))
+    ms = cuda_ms(lambda: ops.frontier_relax(*case))
+    rows_ms = cuda_ms(lambda: ops.frontier_relax_rows(*tables, rows, dist, kth, src))
+    plain_ms = cuda_ms(lambda: ref.frontier_relax_ref(*case))
+    rows_plain_ms = cuda_ms(lambda: ref.frontier_relax_rows_ref(*tables, rows, dist, kth, src))
+    bms, by = frontier_bound(nbr, b)
     results["frontier_relax"] = {
         "shape": {"n": n, "R": r, "T": t, "B": b}, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "rows_ms": rows_ms, "rows_plain_ms": rows_plain_ms, "cases": cases,
     }
 
 
@@ -983,15 +1086,19 @@ def main_path(grid: int, k: int, dev) -> tuple[dict, dict]:
 def profiled_flush(knn, engine, mset: set, rng) -> dict:
     """One more flush of the same traffic under ``torch.profiler``, with a CUDA
     event pair around every kernel wrapper call as well: K1-K3's own device
-    time at the shapes a flush gives them. The profiler reads kernels by
-    name; the events (which also hold the wrapper's few tensor ops) stand in
-    where the profiler shows no device time."""
+    time at the shapes a flush gives them, and each K1 / K3 call's shape
+    (B, C; R, T, B) and its bound there. The profiler reads kernels by name;
+    the events (which also hold the wrapper's few tensor ops) stand in where
+    the profiler shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
 
-    names = ("topk_merge", "sweep_merge", "frontier_relax")
+    # the wrappers the engine calls, and the name of each one's kernel
+    names = {"topk_merge": "topk_merge_kernel", "sweep_merge": "sweep_merge_kernel",
+             "frontier_relax_rows": "frontier_relax_kernel"}
     events = {name: [] for name in names}
+    calls = {name: [] for name in names}
     wrapped = {name: getattr(ops, name) for name in names}
 
     def timed(name):
@@ -1001,6 +1108,7 @@ def profiled_flush(knn, engine, mset: set, rng) -> dict:
             result = wrapped[name](*args, **kwargs)
             e1.record()
             events[name].append((e0, e1))
+            calls[name].append(args)  # the schedule and rows are not written later
             return result
         return call
 
@@ -1026,16 +1134,32 @@ def profiled_flush(knn, engine, mset: set, rng) -> dict:
             continue
         dev_us = max(row.self_device_time_total, row.device_time_total)
         busy_us += dev_us
-        for name, kernel in (("topk_merge", "topk_merge_kernel"),
-                             ("sweep_merge", "sweep_merge_kernel"),
-                             ("frontier_relax", "frontier_relax_kernel")):
+        for name, kernel in names.items():
             if kernel in row.key:
-                out.setdefault(name, {}).update(profiler_ms=dev_us / 1e3, profiler_calls=row.count)
+                entry = out.setdefault(name, {})
+                entry["profiler_ms"] = entry.get("profiler_ms", 0.0) + dev_us / 1e3
+                entry["profiler_calls"] = entry.get("profiler_calls", 0) + row.count
     for name in names:
         ms = [e0.elapsed_time(e1) for e0, e1 in events[name]]
         out.setdefault(name, {}).update(
             calls=len(ms), event_ms_total=sum(ms),
             event_ms_per_call=statistics.median(ms) if ms else None)
+        require(not ms or "profiler_ms" in out[name],
+                f"the profiler shows no kernel named {names[name]} for {name}")
+    # each call's shape and its bound there (as the kernel checks count them)
+    shapes, bound_ms = [], 0.0
+    for args in calls["topk_merge"]:
+        b, c = args[0].shape
+        k = args[2]
+        shapes.append({"B": b, "C": c})
+        bound_ms += topk_bound(b, c, k)[0]
+    out["topk_merge"].update(shapes=shapes, bound_ms_total=bound_ms)
+    shapes, bound_ms = [], 0.0
+    for nbr_tab, _, rows, dist, *_ in calls["frontier_relax_rows"]:
+        r, t, b = rows.shape[0], nbr_tab.shape[1], dist.shape[1]
+        shapes.append({"R": r, "T": t, "B": b})
+        bound_ms += frontier_bound(nbr_tab[rows.long()], b)[0]
+    out["frontier_relax_rows"].update(shapes=shapes, bound_ms_total=bound_ms)
     out["device_busy_ms"] = busy_us / 1e3
     return out
 

@@ -27,7 +27,7 @@ and exposes the paper's three operations in batched form:
   Application is a single fused pipeline: one device scan finds every row
   naming a deleted object (``ops.rows_containing``); the checkIns frontier for
   ALL staged inserts runs as multi-source pruned-relaxation rounds on device
-  (``ops.frontier_relax`` with changed-frontier narrowing, see
+  (``ops.frontier_relax_rows`` with changed-frontier narrowing, see
   ``EngineCore._insert_frontier``; the host ``updates.insert_affected_set``
   heap search survives as the per-object oracle and as the ``frontier =
   "host"`` baseline pipeline) against the pre-update k-th distances; then one
@@ -195,6 +195,10 @@ class EpochStore:
         return epoch, self._snaps[epoch]
 
 
+# the frontier state's source columns are padded to a multiple of this
+_FRONTIER_COLS = 4
+
+
 def _pow2_pad(x: int, lo: int = 8) -> int:
     """Next power of two >= x (>= lo)."""
     return max(lo, 1 << (max(1, x) - 1).bit_length())
@@ -275,7 +279,7 @@ class EngineCore:
     @property
     def frontier(self) -> str:
         """Which checkIns pipeline ``flush_updates`` runs: ``"device"``
-        (default) is the batched multi-source ``ops.frontier_relax`` rounds;
+        (default) is the batched multi-source ``ops.frontier_relax_rows`` rounds;
         ``"host"`` replays the per-object ``insert_affected_set`` heap search
         (the measurable baseline and the oracle's twin). Flipping pipelines
         mid-life is safe (both produce identical tables); anything but the
@@ -1204,7 +1208,12 @@ class QueryEngine(EngineCore):
     # kth value ever crosses the host boundary.
 
     def _frontier_init(self, src: np.ndarray) -> torch.Tensor:
-        self._fsrc = self._upload(src)
+        # source columns padded to a multiple of 4 (-1 pads, +inf throughout),
+        # so that K3 may read its rows four columns at a time; the JAX engine
+        # pads to a power of two for its compile cache
+        b = -(-len(src) // _FRONTIER_COLS) * _FRONTIER_COLS
+        self._fsrc = self._upload(np.pad(np.asarray(src, np.int32), (0, b - len(src)),
+                                         constant_values=-1))
         self._fkth = self._vk_d[:, -1].contiguous()
         return _frontier_init_prog(self._fsrc, self._vk_ids.shape[0])
 
@@ -1218,30 +1227,32 @@ class QueryEngine(EngineCore):
 
     def _frontier_extract(self, state, rows: np.ndarray, src: np.ndarray):
         aff, d = _frontier_affected(self._upload(rows), state, self._fkth, self._fsrc)
-        return aff.cpu().numpy(), d.cpu().numpy()
+        b = len(src)
+        return aff[:, :b].cpu().numpy(), d[:, :b].cpu().numpy()
 
 
 def _frontier_init_prog(src: torch.Tensor, n1: int) -> torch.Tensor:
     """Allocate the (n+1, B) multi-source tentative-distance matrix: +inf
-    everywhere except 0 at (src[i], i)."""
+    everywhere except 0 at (src[i], i). Padded source columns (src = -1)
+    park their +inf on the dummy row, so they stay +inf throughout."""
     b = src.shape[0]
     dist = torch.full((n1, b), _INF, dtype=torch.float32, device=src.device)
-    dist[src.long(), torch.arange(b, device=src.device)] = 0.0
+    real = src >= 0
+    dist[torch.where(real, src, n1 - 1).long(), torch.arange(b, device=src.device)] = (
+        torch.where(real, 0.0, _INF))
     return dist
 
 
 def _frontier_round(nbr_tab, w_tab, rows, dist, kth, src, use_kernel: bool) -> torch.Tensor:
-    """One frontier round: gather the receiver rows' BNS slices, run
-    ``ops.frontier_relax`` against the k-th column, derive the changed mask
-    that narrows the next round's receiver set (distances only ever decrease,
-    so ``new < old`` is exactly "changed"), then store the new rows into
-    ``dist`` in place. Every relaxation read saw the pre-round ``dist``."""
-    idx = rows.long()
-    new = ops.frontier_relax(
-        nbr_tab[idx], rows, w_tab[idx], dist, kth, src, use_kernel=use_kernel
+    """One frontier round: ``ops.frontier_relax_rows`` relaxes the receivers
+    against the k-th column, reading their rows of the bucket tables, and
+    gives the changed mask that narrows the next round's receiver set; then
+    the new rows are stored into ``dist`` in place. Every relaxation read
+    saw the pre-round ``dist``."""
+    new, changed = ops.frontier_relax_rows(
+        nbr_tab, w_tab, rows, dist, kth, src, use_kernel=use_kernel
     )
-    changed = (new < dist[idx]).any(dim=1)
-    dist[idx] = new
+    dist[rows.long()] = new
     return changed
 
 

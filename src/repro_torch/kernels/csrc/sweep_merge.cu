@@ -23,8 +23,8 @@
 //   (kround.cuh: distance bits << 32 | id; invalid, +inf, NaN and negative
 //   distances pack to the dead key), at most 24 a lane; the register count is
 //   a template argument picked per row width (4, 8, 16 or 24), so narrow rows
-//   do not scan empty registers. The selection is k rounds of
-//   `kround_merge`: each lane drops the last selected id from its keys and
+//   do not scan empty registers. The selection (`select_rounds` in
+//   kround.cuh, shared with K1) is k rounds of `kround_merge`: each lane drops the last selected id from its keys and
 //   takes its min by a tree, two `redux.sync` give the warp's min (distance
 //   bits, then the smallest id holding them), which is the next entry; a
 //   round whose min is the dead key ends the row, and its remaining slots are
@@ -71,54 +71,16 @@ namespace {
 
 constexpr int kWarps = 8;  // rows a block of the one-level kernel holds at once
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxRegs = 24;  // candidate keys a lane may hold
-constexpr int kMaxCands = kMaxRegs * 32;
-// OR-ed into a key whose id was selected: it then sorts after the dead key
-constexpr knn::key_t kDropped = 0xffffffff00000000ull;
+using knn::kMaxCands;
+using knn::kMaxRegs;
+using knn::merge_parts;
+using knn::select_rounds;
+using knn::store_row;
 
 // Neighbours a group may hold: its candidates plus the tail (E extras in the
 // first group, the k carried in later ones) must fit the warp's registers.
 __host__ __device__ __forceinline__ int group_cap(int k, int e) {
   return (kMaxCands - (e > k ? e : k)) / k;
-}
-
-// The warp's min key: the min distance bits (one redux), then the min id
-// among the lanes that hold it (a second).
-__device__ __forceinline__ knn::key_t warp_min_key(knn::key_t v) {
-  const unsigned hi = __reduce_min_sync(0xffffffffu, static_cast<unsigned>(v >> 32));
-  const unsigned lo = __reduce_min_sync(
-      0xffffffffu, static_cast<unsigned>(v >> 32) == hi ? static_cast<unsigned>(v) : 0xffffffffu);
-  return (static_cast<knn::key_t>(hi) << 32) | lo;
-}
-
-// k rounds of `kround_merge` over the warp's candidates in `key` (REGS a
-// lane): drop the last selected id, take each lane's min by a tree, then
-// the warp's; `sel` (this warp's k slots) receives the k keys, dead keys
-// once the candidates run out.
-template <int REGS>
-__device__ __forceinline__ void select_rounds(knn::key_t (&key)[REGS], int k, knn::key_t* sel) {
-  const int lane = threadIdx.x & 31;
-  uint32_t last = 0xffffffffu;  // no valid id: matches only dead keys
-  int r = 0;
-  for (; r < k; ++r) {
-    knn::key_t m[REGS];
-#pragma unroll
-    for (int s = 0; s < REGS; ++s) {
-      // a dropped key keeps its id and gets distance bits above the dead key's
-      if (static_cast<uint32_t>(key[s]) == last) key[s] |= kDropped;
-      m[s] = key[s];
-    }
-#pragma unroll
-    for (int w = 1; w < REGS; w *= 2)
-#pragma unroll
-      for (int s = 0; s + w < REGS; s += 2 * w) m[s] = m[s + w] < m[s] ? m[s + w] : m[s];
-    const knn::key_t best = warp_min_key(m[0]);
-    if (best >= knn::kDeadKey) break;  // warp-uniform: the rest are dead too
-    if (lane == 0) sel[r] = best;
-    last = static_cast<uint32_t>(best);
-  }
-  for (int x = r + lane; x < k; x += 32) sel[x] = knn::kDeadKey;
-  __syncwarp();
 }
 
 // One warp's part of a row: its neighbour groups g_first, g_first + g_step,
@@ -203,29 +165,6 @@ __device__ __forceinline__ void merge_part(const int* nbr_i, const float* w_i, i
   else
     select_groups<kMaxRegs>(nbr_i, w_i, t, t_group, g_first, g_step, extras, ex_ids, ex_d, e,
                             ex_row, rd_ids, rd_d, k, sel);
-}
-
-// A row's parts (c keys in device memory, written by other warps of the
-// grid) merged by one warp into `sel`: the dedup top-k of the parts' dedup
-// top-ks. Read through L2 (`__ldcg`): L1 may hold stale lines.
-template <int REGS>
-__device__ void merge_parts(const knn::key_t* parts, int c, int k, knn::key_t* sel) {
-  const int lane = threadIdx.x & 31;
-  knn::key_t key[REGS];
-#pragma unroll
-  for (int s = 0; s < REGS; ++s) {
-    const int idx = s * 32 + lane;
-    key[s] = idx < c ? __ldcg(parts + idx) : knn::kDeadKey;
-  }
-  select_rounds<REGS>(key, k, sel);
-}
-
-__device__ __forceinline__ void store_row(const knn::key_t* sel, int k, int* wr_ids,
-                                          float* wr_d, size_t row) {
-  for (int r = threadIdx.x & 31; r < k; r += 32) {
-    wr_ids[row * k + r] = knn::key_id(sel[r]);
-    wr_d[row * k + r] = knn::key_dist(sel[r]);
-  }
 }
 
 // One call: warp w of block b merges row b * kWarps + w into tile row i.

@@ -1,9 +1,10 @@
 """Public wrappers around the CUDA kernels, and the plain-torch table ops.
 
-Seven functions here launch a hand-written kernel (``csrc/*.cu``):
+Eight functions here launch a hand-written kernel (``csrc/*.cu``):
 ``topk_merge``, ``sweep_merge`` and ``sweep_merge_levels`` (K2: one call, one
-repair round; one call, a whole sweep), ``frontier_relax``, ``minplus_matmul``,
-``retrieval_topk`` and ``flash_attention``.
+repair round; one call, a whole sweep), ``frontier_relax`` and
+``frontier_relax_rows`` (K3: the JAX package's signature; the engine's fused
+form), ``minplus_matmul``, ``retrieval_topk`` and ``flash_attention``.
 Given CUDA tensors and ``use_kernel=True`` (the default) a wrapper checks
 device, dtype, shape and contiguity, launches its kernel on the current
 stream and raises if the launch is refused; it never gives way to the plain
@@ -22,6 +23,7 @@ Tables stay int32 / float32; indices widen to int64 only at the indexing call.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -52,20 +54,21 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> (argument types, return type); every pointer and the stream
 # go as c_void_p, or ctypes would cut them to 32 bits
 _SIGNATURES = {
-    "knn_topk_merge": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "knn_topk_merge": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    "knn_topk_geometry": ([_I], _I),
     "knn_sweep_merge": ([_P] * 9 + [_I] * 5 + [_P], _I),
     "knn_sweep_levels": ([_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
     "knn_sweep_levels_grid": ([_I], _I),
     "knn_sweep_group_cap": ([_I, _I], _I),
     "knn_sweep_geometry": ([_I], _I),
-    "knn_frontier_relax": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    "knn_frontier_relax": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    "knn_frontier_relax_rows": ([_P] * 8 + [_I] * 5 + [_P], _I),
     "knn_minplus": ([_P] * 3 + [_I] * 3 + [_P] * 5, _I),
     "knn_minplus_bits": ([_P, _P, _I, _I, _I, _P, _P, _P], _I),
     "knn_minplus_geometry": ([_I], _I),
     "knn_retrieval_topk": ([_P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
     "knn_retrieval_tile": ([], _I),
     "knn_flash_attention": ([_P] * 4 + [_I] * 8 + [ctypes.c_float, _P], _I),
-    "knn_topk_merge_smem": ([_I, _I], ctypes.c_longlong),
 }
 _fns: dict[str, object] = {}
 
@@ -96,11 +99,6 @@ def _launched(kernel: str, code: int) -> None:
     LAUNCHES[kernel] += 1
 
 
-def _threads(work: int, cap: int) -> int:
-    """Block size: one thread per work item, whole warps, at most ``cap``."""
-    return max(32, min(cap, -(-work // 32) * 32))
-
-
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -110,14 +108,34 @@ def _stream(device) -> int:
 # ----------------------------------------------------------------------
 
 
+# keys a lane of K1's warp may hold (csrc/kround.cuh: kMaxRegs choices), the
+# warp's candidates, and the largest k (csrc/topk_merge.cu: kMaxK)
+TOPK_REGS = (4, 8, 16, 24)
+TOPK_CANDS = 24 * 32
+TOPK_MAX_K = TOPK_CANDS // 2
+
+
+def topk_plan(c: int, k: int) -> tuple[int, int]:
+    """K1's registers a lane and candidates a group for a C-wide row: all C
+    in one group on the fewest registers that hold them; past 768, groups of
+    768 - k new candidates, each merged with the k best of the groups before.
+    """
+    if not 1 <= k <= TOPK_MAX_K:
+        raise ValueError(f"topk_merge: k={k}, the kernel takes 1 <= k <= {TOPK_MAX_K}")
+    if c <= TOPK_CANDS:
+        return next(r for r in TOPK_REGS if 32 * r >= c), max(1, c)
+    return TOPK_REGS[-1], TOPK_CANDS - k
+
+
 def topk_merge(cand_ids: torch.Tensor, cand_d: torch.Tensor, k: int, *, use_kernel: bool = True):
     """Top-k distinct-id merge. cand_ids (B, C) int32 (-1 invalid), cand_d
     (B, C) float32 or float16. Returns ((B, k) int32, (B, k) of cand_d's type).
 
-    CUDA kernel: ``csrc/topk_merge.cu`` (replaces ``topk_merge_pallas``). One
-    block per row, no padding of B or C. Bound by bytes: B*C*8 read, B*k*8
-    written. float16 distances are widened to float32 here and narrowed back,
-    as the TPU kernel's body did.
+    CUDA kernel: ``csrc/topk_merge.cu`` (replaces ``topk_merge_pallas``). A
+    warp a row, the candidates in registers (``topk_plan``), K2's barrier-free
+    selection; any C, no padding of B or C, 1 <= k <= 384. Bound by bytes:
+    B*C*8 read, B*k*8 written. float16 distances are widened to float32 here
+    and narrowed back, as the TPU kernel's body did.
     """
     if not (cand_ids.is_cuda and use_kernel):
         return ref.topk_merge_ref(cand_ids, cand_d, k)
@@ -128,19 +146,18 @@ def topk_merge(cand_ids: torch.Tensor, cand_d: torch.Tensor, k: int, *, use_kern
         cand_d = cand_d.to(torch.float32)
     _check("cand_ids", cand_ids, torch.int32, (b, c), dev)
     _check("cand_d", cand_d, torch.float32, (b, c), dev)
-    smem = _fn("topk_merge", "knn_topk_merge_smem")(c, k)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"topk_merge: C={c} candidates need {smem} bytes of shared memory, "
-            f"a block may have {MAX_SMEM_BYTES}"
-        )
+    regs, group = topk_plan(c, k)
+    geometry = _fn("topk_merge", "knn_topk_geometry")
+    if (geometry(0), geometry(1)) != (TOPK_CANDS, TOPK_MAX_K):
+        raise RuntimeError(f"topk_merge: kernel holds {geometry(0)} candidates and k <= "
+                           f"{geometry(1)}, the wrapper plans {TOPK_CANDS} and {TOPK_MAX_K}")
     out_ids = torch.empty((b, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     if b:
         with torch.cuda.device(dev):
             code = _fn("topk_merge", "knn_topk_merge")(
                 cand_ids.data_ptr(), cand_d.data_ptr(), out_ids.data_ptr(),
-                out_d.data_ptr(), b, c, k, _threads(c, 256), _stream(dev),
+                out_d.data_ptr(), b, c, k, regs, group, _stream(dev),
             )
         _launched("topk_merge", code)
     return out_ids, out_d.to(out_dtype)
@@ -294,6 +311,34 @@ def sweep_merge_levels(
 # ----------------------------------------------------------------------
 
 
+def frontier_plan(r: int, b: int, ptr: int, resident_warps: int) -> tuple[int, int]:
+    """K3's launch shape for R receivers of B columns, the matrix at address
+    ``ptr``: V, the columns a lane reads at once (the fewest chunks of 32 * V
+    over B, then the narrowest load that B and the address allow), and
+    whether each (receiver, chunk) gets a warp of its own (1) rather than
+    each receiver (0): only where R receivers would leave some of the card's
+    ``resident_warps`` idle (a round's highest-degree bucket holds a few
+    thousand rows of hundreds of neighbours, a long chain of loads a warp)."""
+    fits = [v for v in (1, 2, 4) if b % v == 0 and ptr % (4 * v) == 0]
+    vec = min(fits, key=lambda v: (-(-b // (32 * v)), v))
+    return vec, int(r < resident_warps and b > 32 * vec)
+
+
+@functools.lru_cache(maxsize=None)
+def resident_warps(dev) -> int:
+    """Warps the card holds at once: its SMs times the warps an SM holds."""
+    props = torch.cuda.get_device_properties(dev)
+    return props.multi_processor_count * props.max_threads_per_multi_processor // 32
+
+
+def _frontier_checks(dist, kth, src, dev) -> int:
+    n1, b = dist.shape
+    _check("dist", dist, torch.float32, (n1, b), dev)
+    _check("kth", kth, torch.float32, (n1,), dev)
+    _check("src", src, torch.int32, (b,), dev)
+    return b
+
+
 def frontier_relax(
     nbr: torch.Tensor,   # (R, T) int32 BNS neighbour ids per receiver, -1 pad
     rows: torch.Tensor,  # (R,) int32 receiver rows, n (dummy) = padding
@@ -311,34 +356,79 @@ def frontier_relax(
     (Algorithm 4's checkIns test) or u is the source itself. Returns the new
     receiver rows as a fresh (R, B) tile, row i for ``rows[i]``; ``dist`` is
     only read, so every read sees pre-round values (pure Jacobi) for any
-    receiver set. The caller derives the changed mask and scatters the tile.
+    receiver set. The engine calls ``frontier_relax_rows``.
 
-    CUDA kernel: ``csrc/frontier_relax.cu`` (replaces ``frontier_relax_pallas``).
-    One block per receiver row, threads along the B columns. Bound by bytes:
-    R*T*8 of schedule, the distinct neighbour rows and R own rows (B*4 each)
-    read, R*B*4 written.
+    CUDA kernel: ``knn_frontier_relax`` in ``csrc/frontier_relax.cu`` (replaces
+    ``frontier_relax_pallas``). A warp a receiver row (or a part of its
+    columns, ``frontier_plan``), the schedule read by the lanes together,
+    neighbour rows loaded two at a time. Bound by bytes: R*T*8 of
+    schedule, the distinct neighbour rows and R own rows (B*4 each) read,
+    R*B*4 written.
     """
     if not (dist.is_cuda and use_kernel):
         return ref.frontier_relax_ref(nbr, rows, w, dist, kth, src)
     dev = dist.device
     r, t = nbr.shape
-    n1, b = dist.shape
     _check("nbr", nbr, torch.int32, (r, t), dev)
     _check("rows", rows, torch.int32, (r,), dev)
     _check("w", w, torch.float32, (r, t), dev)
-    _check("dist", dist, torch.float32, (n1, b), dev)
-    _check("kth", kth, torch.float32, (n1,), dev)
-    _check("src", src, torch.int32, (b,), dev)
+    b = _frontier_checks(dist, kth, src, dev)
     out = torch.empty((r, b), dtype=torch.float32, device=dev)
     if r and b:
         with torch.cuda.device(dev):
             code = _fn("frontier_relax", "knn_frontier_relax")(
                 nbr.data_ptr(), rows.data_ptr(), w.data_ptr(), dist.data_ptr(),
                 kth.data_ptr(), src.data_ptr(), out.data_ptr(),
-                r, t, b, _threads(b, 256), _stream(dev),
+                r, t, b, *frontier_plan(r, b, dist.data_ptr(), resident_warps(dev)),
+                _stream(dev),
             )
         _launched("frontier_relax", code)
     return out
+
+
+def frontier_relax_rows(
+    nbr_tab: torch.Tensor,  # (n+1, T) int32 bucket table of BNS neighbour ids, -1 pad
+    w_tab: torch.Tensor,    # (n+1, T) float32 bucket table of BNS edge weights
+    rows: torch.Tensor,     # (R,) int32 receiver rows
+    dist: torch.Tensor,     # (n+1, B) float32 multi-source tentative distances
+    kth: torch.Tensor,      # (n+1,) float32 k-th-distance pruning bounds
+    src: torch.Tensor,      # (B,) int32 source vertex per column, -1 pad
+    *,
+    use_kernel: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The engine's frontier round: ``frontier_relax`` with receiver i's
+    schedule read from row ``rows[i]`` of the bucket tables, and the changed
+    mask. Returns the (R, B) tile and an (R,) bool, ``(tile <
+    dist[rows]).any(1)``; ``dist`` is only read.
+
+    CUDA kernel: ``knn_frontier_relax_rows`` in ``csrc/frontier_relax.cu``, the
+    kernel of ``frontier_relax`` reading the tables in place (no gather of
+    the schedule) and writing each row's changed flag from the registers that
+    hold its old and new values. Counted as a ``frontier_relax`` launch.
+    """
+    if not (dist.is_cuda and use_kernel):
+        return ref.frontier_relax_rows_ref(nbr_tab, w_tab, rows, dist, kth, src)
+    dev = dist.device
+    r = rows.shape[0]
+    n1, t = nbr_tab.shape
+    _check("nbr_tab", nbr_tab, torch.int32, (n1, t), dev)
+    _check("w_tab", w_tab, torch.float32, (n1, t), dev)
+    _check("rows", rows, torch.int32, (r,), dev)
+    if dist.shape[0] != n1:
+        raise ValueError(f"frontier_relax_rows: tables of {n1} rows, dist of {dist.shape[0]}")
+    b = _frontier_checks(dist, kth, src, dev)
+    out = torch.empty((r, b), dtype=torch.float32, device=dev)
+    changed = torch.zeros((r,), dtype=torch.bool, device=dev)
+    if r and b:
+        with torch.cuda.device(dev):
+            code = _fn("frontier_relax", "knn_frontier_relax_rows")(
+                nbr_tab.data_ptr(), w_tab.data_ptr(), rows.data_ptr(), dist.data_ptr(),
+                kth.data_ptr(), src.data_ptr(), out.data_ptr(), changed.data_ptr(),
+                r, t, b, *frontier_plan(r, b, dist.data_ptr(), resident_warps(dev)),
+                _stream(dev),
+            )
+        _launched("frontier_relax", code)
+    return out, changed
 
 
 # ----------------------------------------------------------------------

@@ -123,6 +123,16 @@ def frontier_relax_ref(nbr, rows, w, dist, kth, src):
     return acc
 
 
+def frontier_relax_rows_ref(nbr_tab, w_tab, rows, dist, kth, src):
+    """The engine's frontier round: ``frontier_relax_ref`` on the receivers'
+    rows of the (n+1, T) bucket tables, and the (R,) changed mask
+    ``(new < old).any(1)`` (distances only ever decrease, so "below" is
+    "changed"). Returns (tile, changed); ``dist`` is only read."""
+    idx = rows.long()
+    tile = frontier_relax_ref(nbr_tab[idx], rows, w_tab[idx], dist, kth, src)
+    return tile, (tile < dist[idx]).any(dim=1)
+
+
 def minplus_matmul_ref(a: torch.Tensor, b: torch.Tensor):
     """Tropical (min, +) product ``C[i, j] = min_t a[i, t] + b[t, j]``.
 

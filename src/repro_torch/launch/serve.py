@@ -298,6 +298,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=None,
                     help="lm: sequence batch (default 4); knn: query batch "
                          "(default min(config query_batch, 4096))")
+    # --query-batch is an alias for --batch kept for the knn family
+    ap.add_argument("--query-batch", type=int, default=None, dest="batch")
     # lm options
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

@@ -225,6 +225,37 @@ def test_road_flushes_match_jax_engine(seed):
     assert indices_equivalent(fresh, te.to_index())
 
 
+@pytest.mark.parametrize("n_ins", [1, 7, 13])
+def test_staged_inserts_not_a_multiple_of_four_match_jax_engine(n_ins):
+    """The port pads its frontier's source columns to a multiple of 4, the JAX
+    engine to a power of two: flushes whose frontier has 1, 7 or 13 source
+    columns (inserts alone, then inserts plus moves) leave equal tables and
+    stats."""
+    g = road_network(10, 10, seed=n_ins)
+    objects = pick_objects(g.n, 0.15, seed=n_ins)
+    je, te, bn = _pair(g, objects, 4)
+    rng = np.random.default_rng(n_ins)
+    mset = set(objects.tolist())
+    for moves in (0, 2):
+        absent = [v for v in rng.permutation(g.n).tolist() if v not in mset][:n_ins]
+        present = rng.choice(sorted(mset), size=moves, replace=False).tolist()
+        for v in absent[: n_ins - moves]:
+            je.stage_insert(v), te.stage_insert(v)
+            mset.add(v)
+        for u, v in zip(present, absent[n_ins - moves:]):
+            je.stage_move(u, v), te.stage_move(u, v)
+            mset.discard(u)
+            mset.add(v)
+        res = te.flush_updates()
+        assert res == je.flush_updates() and res["inserts"] + res["moves"] == n_ins
+        _tables_equal(je, te)
+        ts, js = te.stats(), je.stats()
+        for key in ("rows_repaired", "repair_rounds_last", "frontier_rounds_last"):
+            assert ts[key] == js[key], key
+    fresh = knn_index_cons_plus(bn, np.array(sorted(mset)), 4)
+    assert indices_equivalent(fresh, te.to_index())
+
+
 def test_coalescing_rules_and_stats():
     g, objects, je, te, _ = _road_engine()
     mset = set(objects.tolist())

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.engine import _frontier_round as jax_frontier_round
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.sweep_merge import kround_merge as jax_kround_merge
@@ -113,6 +114,67 @@ def test_topk_merge_odd_widths(c):
     got = ops.topk_merge(*_t(ids, d), 5)
     _eq(got, jref.topk_merge_ref(*_j(ids, d), 5))
     _eq(got, jops.topk_merge(*_j(ids, d), 5, use_pallas=True))
+
+
+# K1's plan: the registers a lane and the group of candidates the wrapper picks
+# for a C-wide row, and the group walk it implies, mirrored in numpy
+
+
+def _np_kround(ids, d, k):
+    """numpy ``kround_merge``: k rounds of min distance, ties to the smaller
+    id, then every candidate of the selected id dropped."""
+    d = np.where(ids < 0, np.inf, d).astype(np.float32)
+    out_i = np.full((ids.shape[0], k), -1, np.int32)
+    out_d = np.full((ids.shape[0], k), np.inf, np.float32)
+    for r in range(k if ids.shape[1] else 0):
+        dmin = d.min(axis=1)
+        idmin = np.where(d == dmin[:, None], ids, np.iinfo(np.int32).max).min(axis=1)
+        ok = np.isfinite(dmin)
+        out_i[:, r] = np.where(ok, idmin, -1)
+        out_d[:, r] = np.where(ok, dmin, np.inf)
+        d = np.where(ids == idmin[:, None], np.inf, d)
+    return out_i, out_d
+
+
+def _np_topk_groups(ids, d, k):
+    """K1's walk of a row: groups of ``topk_plan``'s width, each merged with
+    the k best of the groups before, every group within the warp's keys."""
+    c = ids.shape[1]
+    regs, group = ops.topk_plan(c, k)
+    run = None
+    for g0 in range(0, max(c, 1), group):
+        g_ids, g_d = ids[:, g0 : g0 + group], d[:, g0 : g0 + group]
+        if run is not None:
+            g_ids, g_d = np.concatenate([g_ids, run[0]], 1), np.concatenate([g_d, run[1]], 1)
+        assert g_ids.shape[1] <= 32 * regs
+        run = _np_kround(g_ids, g_d, k)
+    return run
+
+
+@pytest.mark.parametrize("c,k", [(7, 20), (128, 20), (129, 20), (256, 20), (257, 20), (512, 20),
+                                 (513, 20), (768, 20), (769, 20), (769, 3), (1600, 20)])
+def test_topk_merge_plan_in_groups_matches_jax_kround_merge(c, k):
+    regs, group = ops.topk_plan(c, k)
+    if c <= ops.TOPK_CANDS:  # one group on the fewest registers that hold it
+        assert group == c and 32 * regs >= c and (regs == 4 or 32 * regs // 2 < c)
+    else:
+        assert regs == 24 and group + k == ops.TOPK_CANDS
+    rng = np.random.default_rng(c * 31 + k)
+    ids = rng.integers(0, max(8, c // 4), size=(6, c)).astype(np.int32)  # ties and repeats
+    ids[rng.random((6, c)) < 0.15] = -1
+    ids[0] = -1                                                          # an all-invalid row
+    d = rng.integers(0, 24, size=(6, c)).astype(np.float32)
+    got = _np_topk_groups(ids, d, k)
+    _eq(got, jref.topk_merge_ref(*_j(ids, d), k))
+    _eq(got, jax_kround_merge(jnp.asarray(ids), jnp.asarray(np.where(ids < 0, np.inf, d)), k))
+    _eq(ops.topk_merge(*_t(ids, d), k), got)
+
+
+def test_topk_plan_refuses_what_the_kernel_cannot_hold():
+    for k in (0, ops.TOPK_MAX_K + 1):
+        with pytest.raises(ValueError, match="k="):
+            ops.topk_plan(100, k)
+    assert ops.topk_plan(30000, 20) == (24, ops.TOPK_CANDS - 20)  # any C: no shared memory
 
 
 # ---------------------------------------------------------------------------
@@ -404,6 +466,75 @@ def test_frontier_relax_all_pad_row_stays_inf():
     kth = np.full(n + 1, np.inf, np.float32)
     src = np.full(8, -1, np.int32)
     assert np.isinf(_relaxed_full((nbr, rows, w, dist, kth, src))).all()
+
+
+def test_frontier_plan_reads_few_chunks_and_splits_only_few_rows():
+    """K3's launch shape (Python, like K1's plan): V columns a lane reads at
+    once, the fewest 32 * V chunks first, then the narrowest load B and the
+    address allow; a warp a (row, chunk) only where the rows would not fill
+    the card."""
+    warps = 8448  # an H100: 132 SMs x 64 warps
+    assert ops.frontier_plan(131072, 64, 0, warps) == (2, 0)   # the usa shape: one chunk
+    assert ops.frontier_plan(98241, 472, 0, warps) == (4, 0)   # a flush's narrow bucket
+    assert ops.frontier_plan(2780, 472, 0, warps) == (4, 1)    # its highest-degree bucket
+    assert ops.frontier_plan(1000, 475, 0, warps) == (1, 1)    # B odd: scalar loads
+    assert ops.frontier_plan(1000, 476, 8, warps) == (2, 1)    # 8-byte aligned matrix
+    assert ops.frontier_plan(100, 64, 0, warps) == (2, 0)      # one chunk: nothing to split
+    assert ops.frontier_plan(5, 1, 0, warps) == (1, 0)
+
+
+def _bucket_case(seed, n, r, t, b):
+    """An engine frontier round at bucket width t: (n+1, t) tables with each
+    row's neighbours first and -1 / +inf behind them (the dummy row and some
+    rows all pads), receivers half of whose neighbours are receivers too (the
+    Jacobi trap), two padded receiver rows aimed at row n, an (n+1, k) table
+    whose last column is the pruning bound, and padded source columns."""
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(n, size=r, replace=False).astype(np.int32)
+    deg = rng.integers(0, t + 1, size=n + 1)
+    deg[rng.random(n + 1) < 0.1] = 0
+    deg[n] = 0
+    nbr = rng.integers(0, n, size=(n + 1, t))
+    own = rng.random((n + 1, t)) < 0.5
+    nbr[own] = rows[rng.integers(0, r, size=int(own.sum()))]
+    nbr = np.where(np.arange(t)[None, :] < deg[:, None], nbr, -1).astype(np.int32)
+    w = np.where(nbr >= 0, rng.integers(1, 9, size=nbr.shape), np.inf).astype(np.float32)
+    rows[-2:] = n
+    dist = rng.integers(0, 40, size=(n + 1, b)).astype(np.float32)
+    dist[rng.random((n + 1, b)) < 0.5] = np.inf
+    dist[n] = np.inf
+    n_src = max(1, b - 2)
+    src = np.full(b, -1, np.int32)
+    src[:n_src] = rng.choice(n, size=n_src, replace=False)
+    dist[:, n_src:] = np.inf
+    for i in range(n_src):
+        dist[src[i], i] = 0.0
+    vk_d = np.sort(rng.integers(0, 50, size=(n + 1, 3)), axis=1).astype(np.float32)
+    vk_d[n] = np.inf
+    return nbr, w, rows, dist, vk_d, src
+
+
+@pytest.mark.parametrize("seed,n,r,t,b,pallas", [
+    (0, 60, 12, 8, 8, True),
+    (1, 120, 30, 32, 7, False),   # B not a multiple of 4
+    (2, 300, 40, 128, 64, False),
+    (3, 400, 25, 200, 13, False),  # tau': several 32-slot passes
+])
+def test_frontier_relax_rows_matches_jax_engine_round(seed, n, r, t, b, pallas):
+    nbr_tab, w_tab, rows, dist, vk_d, src = _bucket_case(seed, n, r, t, b)
+    kth = np.ascontiguousarray(vk_d[:, -1])
+    tile, changed = ops.frontier_relax_rows(*_t(nbr_tab, w_tab, rows, dist, kth, src))
+    assert changed.dtype == torch.bool and changed.shape == (r,)
+    for use_pallas in (False, True) if pallas else (False,):
+        new, jchanged = jax_frontier_round(*_j(nbr_tab, w_tab, rows, dist, vk_d, src),
+                                           use_pallas=use_pallas)
+        _eq((tile, changed), (np.asarray(new)[rows], np.asarray(jchanged)))
+    _eq((tile,), (ops.frontier_relax(*_t(nbr_tab[rows], rows, w_tab[rows], dist, kth, src)),))
+    assert changed.any() and not changed.all()
+    assert np.isinf(tile.numpy()[-2:]).all()        # padded rows read the all-pad dummy row
+    idle = rows[:-2][nbr_tab[rows[:-2]].max(axis=1) < 0]
+    assert idle.size                                 # rows whose table row is all pads
+    np.testing.assert_array_equal(tile.numpy()[np.isin(rows, idle)], dist[idle])
 
 
 # ---------------------------------------------------------------------------

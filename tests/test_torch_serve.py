@@ -126,6 +126,25 @@ def test_serve_fleet_workload(capsys):
     assert out["query_p50_us"] > 0 and out["ticks_per_s"] > 0
 
 
+def test_serve_query_batch_is_an_alias_of_batch(capsys):
+    """``--query-batch`` sets the knn query batch, as in the JAX package's serve.py."""
+    common = ["--arch", "knn-index", "--grid", "10", "--k", "4", "--device", "cpu",
+              "--ops", "200"]
+    alias = serve.main(common + ["--query-batch", "64"])
+    assert json.loads(capsys.readouterr().out) == alias
+    plain = serve.main(common + ["--batch", "64"])
+    capsys.readouterr()
+    assert alias.keys() == plain.keys() and alias["engine"].keys() == plain["engine"].keys()
+    assert alias["batch"] == 64 and alias["errors"] == 0
+    timed = ("_s", "_per_s", "us_per_query")
+    for out in (alias, plain):
+        for key in [key for key in out if key.endswith(timed)]:
+            del out[key]
+        for key in [key for key in out["engine"] if key.startswith("t_")]:
+            del out["engine"][key]
+    assert alias == plain
+
+
 def test_serve_rejects_what_it_cannot_serve(tmp_path):
     with pytest.raises(SystemExit, match="arch family"):
         serve.main(["--arch", "gcn-cora"])
