@@ -58,16 +58,26 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    (tables equal), a journaled flush, a second batch killed mid-repair,
    recovery from the artifact plus the journal, held equal to an uncrashed
    engine loaded from the same artifact that took the same ops;
-8. ``check_retrieval_topk``: K5 against its plain version, exact, at the
-   ``retrieval_cand`` shape (1, 10^6, k = 100), at (512, 10^6), at the JAX
-   kernel test's shapes, with heavy ties, -inf rows, N < k, bfloat16 and
-   k = 1024; times it beside ``torch.topk``;
+8. ``check_retrieval_topk``: K5 against its plain version, exact (ids,
+   scores and the sign of zero), one launch a call, first where its one-launch
+   design could go wrong: back-to-back calls on the same and on other inputs
+   (the arrival counters reset), ascending, descending and all-equal rows,
+   NaN, +inf (fewer and more than k) and -0.0, N = 1,000,003 in float32 and
+   bfloat16 and a storage offset of 1 (rows not 16-byte aligned), a row whose
+   k best lie in one part and one whose k-th key ends a part, k = 1024 at
+   (1, 10^6), B = 70,000, the plan's largest P; then at the JAX kernel
+   test's shapes, with heavy ties, -inf rows, N < k, bfloat16, at
+   (512, 10^6) and at the ``retrieval_cand`` shape (1, 10^6, k = 100); times
+   it (and its host enqueue) beside ``torch.topk`` at (1, 10^6) and
+   (512, 10^6), on ascending scores and at k = 1024;
 9. ``recsys``: the full ``xdeepfm`` configuration on the card (1.56 GB of
    tables from a seeded generator): ``forward`` at the serve_p99 (512) and
    serve_bulk (262,144) batches, held to a float64 evaluation and to each
    other; ``retrieval_score`` over 10^6 candidates with K5 (launch count set
-   to 0 just before and read just after), equal to the plain version's; and
-   the retrieval example in a subprocess;
+   to 0 just before and read just after: one launch), equal to the plain
+   version's, with one call profiled (device time by kernel, CUDA events
+   around its gathers, product and K5); and the retrieval example in a
+   subprocess (two launches for its two kernel calls);
 10. ``check_flash_attention``: K6 against its plain version within stated
    tolerances (bf16 also within two ulps) on both of its routes (bf16:
    ``wgmma`` + TMA; float32: FMAs on the CUDA cores), at (1, 32768, 16/2,
@@ -1236,26 +1246,117 @@ def durability(state: dict, tmp: str) -> dict:
 # ----------------------------------------------------------------------
 
 
+def enqueue_ms(fn, reps: int = 20) -> float:
+    """Median host time of one ``fn()`` in milliseconds, without a synchronize
+    (the card idle before each call)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def retrieval_part_starts(n: int, parts: int) -> list[int]:
+    """First column of each of K5's parts of a 16-byte-aligned float32 row
+    (csrc/retrieval_topk.cu: ceil((n // 4) / parts) vectors of 4 a part)."""
+    per = -(-(n // 4) // parts)
+    return [min(n // 4, p * per) * 4 for p in range(parts)]
+
+
 def check_retrieval_topk(dev, results) -> None:
     from repro_torch.configs import xdeepfm
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(16)
     n_cand, k = xdeepfm.RETRIEVAL_CANDIDATES, xdeepfm.RETRIEVAL_K
-    neg_inf = float("-inf")
+    neg_inf, pos_inf, nan = float("-inf"), float("inf"), float("nan")
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
+    def parts_of(s, kk):
+        b, n = s.shape
+        return ops.retrieval_plan(b, n, kk, ops.retrieval_slots(dev, s.dtype, kk))
+
+    cases = []
+
     def held(s, kk, what):
-        got, want = ops.retrieval_topk(s, kk), ref.retrieval_topk_ref(s, kk)
+        before = ops.LAUNCHES["retrieval_topk"]
+        got = ops.retrieval_topk(s, kk)
+        launched = ops.LAUNCHES["retrieval_topk"] - before
+        want = ref.retrieval_topk_ref(s, kk)
         torch.cuda.synchronize()
         require(got[0].dtype == torch.int32 and got[1].dtype == s.dtype
                 and tuple(got[0].shape) == (s.shape[0], kk), f"retrieval_topk {what}: bad output")
-        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-                f"retrieval_topk differs from its plain version {what}")
+        bad_ids = int((got[0] != want[0]).sum())
+        bad_s = int(((got[1] != want[1]) | (got[1].signbit() != want[1].signbit())).sum())
+        require(bad_ids == 0 and bad_s == 0 and torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1]),
+                f"retrieval_topk differs from its plain version {what}: {bad_ids} of "
+                f"{want[0].numel()} ids and {bad_s} scores differ")
+        require(launched == 1, f"retrieval_topk {what}: {launched} launches for one call")
+        cases.append({"case": what, "shape": list(s.shape) + [kk], "parts": parts_of(s, kk)})
         return got, want
 
+    # what the one-launch design can get wrong: the arrival counters across
+    # calls, the parts' merge, the edges of a part, the alignment of a row
+    s = randn(4, 200_000)
+    held(s, k, "back to back, first call")
+    held(s, k, "back to back, same inputs")
+    held(randn(4, 200_000), k, "back to back, other inputs")
+    up = torch.arange(n_cand, dtype=torch.float32, device=dev)[None]
+    held(up, k, "ascending at (1, 10^6)")
+    held(up.flip(1), k, "descending at (1, 10^6)")
+    held(torch.full((2, n_cand), 0.5, device=dev), k, "all scores equal")
+    s = randn(4, n_cand)
+    s[0, ::97] = nan
+    s[0, 5::20011] = pos_inf  # 50 +inf, fewer than k
+    s[1, ::50] = nan
+    s[1, 3::3001] = pos_inf  # 334 +inf, more than k
+    s[2] = -0.0
+    s[2, ::7] = 0.0
+    s[2, 1::13] = nan
+    s[3, ::5] = neg_inf
+    s[3, 1::11] = nan
+    s[3, 2::101] = pos_inf
+    s[3, 3::17] = -0.0
+    held(s, k, "with NaN, +inf and -0.0")
+    s = randn(3, 1_000_003)
+    held(s, k, "at N = 1,000,003 (rows not 16-byte aligned)")
+    held(s.to(torch.bfloat16), k, "at N = 1,000,003 in bfloat16")
+    big = randn(2 * n_cand + 1)
+    held(big[1:].view(2, n_cand), k, "at a storage offset of 1")
+    del big
+    parts = parts_of(up, k)
+    starts = retrieval_part_starts(n_cand, parts) + [n_cand]
+    j = parts // 2
+    s = randn(1, n_cand)
+    inside = starts[j] + torch.randperm(starts[j + 1] - starts[j], generator=gen,
+                                        device=dev)[: 2 * k]
+    s[0, inside] += 100.0
+    held(s, k, f"with the k best in one part (part {j} of {parts})")
+    edge = starts[j + 1]
+    s = randn(1, n_cand)
+    far = torch.randperm(edge - 1, generator=gen, device=dev)[: k - 1]
+    s[0, far] = 10.0 + torch.rand(k - 1, generator=gen, device=dev)
+    s[0, edge - 1] = 5.0
+    s[0, edge] = 5.0
+    held(s, k, f"with the k-th key at the end of part {j} of {parts}, the next at the start "
+               f"of part {j + 1}")
+    s1024 = randn(1, n_cand)
+    held(s1024, 1024, "at k = 1024, (1, 10^6)")
+    held(randn(70_000, 64), 8, "at B = 70,000, N = 64, k = 8")
+    kk = 16
+    slots = ops.retrieval_slots(dev, torch.float32, kk)
+    n_max = slots * ops.RETRIEVAL_MIN_PART
+    p_max = ops.retrieval_plan(1, n_max, kk, slots)
+    require(p_max == slots, f"retrieval_plan at (1, {n_max}, {kk}): {p_max} parts, not {slots}")
+    held(randn(1, n_max), kk, f"at the plan's largest P = {p_max}")
+    # the cases the first design was checked on
     for b, n, kk in ((1, 1024, 5), (8, 10000, 16), (3, 4096, 100)):  # the JAX test's shapes
         held(randn(b, n), kk, f"at {(b, n, kk)}")
     held(torch.round(randn(4, n_cand) * 10) / 10, k, "with scores rounded to 0.1")
@@ -1269,8 +1370,14 @@ def check_retrieval_topk(dev, results) -> None:
     held(randn(2, 100_000), 1024, "at k = 1024")
     s = randn(512, n_cand)
     held(s, k, "at (512, 10^6)")
-    ms_512 = cuda_ms(lambda: ops.retrieval_topk(s, k))
+    at_512 = {"ms": cuda_ms(lambda: ops.retrieval_topk(s, k)),
+              "plain_ms": cuda_ms(lambda: ref.retrieval_topk_ref(s, k), reps=3),
+              "library_ms": cuda_ms(lambda: torch.topk(s, k)),
+              "bound_ms": bound(512 * (n_cand * 4 + k * 8), 512 * n_cand)[0],
+              "parts": parts_of(s, k)}
     del s
+    ms_ascending = cuda_ms(lambda: ops.retrieval_topk(up, k), reps=20)
+    ms_k1024 = cuda_ms(lambda: ops.retrieval_topk(s1024, 1024), reps=20)
     # the retrieval_cand shape, timed
     s = randn(1, n_cand)
     got, want = held(s, k, "at (1, 10^6)")
@@ -1280,9 +1387,13 @@ def check_retrieval_topk(dev, results) -> None:
     library_ms = cuda_ms(lambda: torch.topk(s, k), reps=20)
     bms, by = bound(n_cand * 4 + k * 8, n_cand)
     results["retrieval_topk"] = {
-        "shape": {"B": 1, "N": n_cand, "k": k}, "max_abs_err": err, "ms": ms,
+        "shape": {"B": 1, "N": n_cand, "k": k}, "parts": parts_of(s, k), "max_abs_err": err,
+        "ms": ms, "enqueue_ms": enqueue_ms(lambda: ops.retrieval_topk(s, k)),
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-        "ms_at_B512": ms_512, "bound_ms_at_B512": bound(512 * (n_cand * 4 + k * 8), 0)[0],
+        "launches_per_call": 1, "at_B512": at_512,
+        "ms_ascending": ms_ascending, "ms_at_k1024": ms_k1024,
+        "parts_at_k1024": parts_of(s1024, 1024), "slots": slots, "cases": len(cases),
+        "case_parts": {c["case"]: c["parts"] for c in cases},
     }
 
 
@@ -1341,7 +1452,9 @@ def recsys(dev) -> dict:
     got = rc.retrieval_score(params, query, cfg, k=k, device=dev)
     torch.cuda.synchronize()
     out["launches"] = ops.launches()  # ---- read right after it ----
-    require(out["launches"]["retrieval_topk"] > 0, "retrieval_score launched no retrieval_topk")
+    require(out["launches"]["retrieval_topk"] == 1,
+            f"retrieval_score launched retrieval_topk {out['launches']['retrieval_topk']} times, "
+            "not once")
     want = rc.retrieval_score(params, query, cfg, k=k, device=dev, use_kernel=False)
     require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
             "retrieval_score with the kernel differs from the plain version")
@@ -1352,6 +1465,7 @@ def recsys(dev) -> dict:
         "ms": cuda_ms(lambda: rc.retrieval_score(params, query, cfg, k=k, device=dev), reps=10),
         "plain_ms": cuda_ms(lambda: rc.retrieval_score(params, query, cfg, k=k, device=dev,
                                                        use_kernel=False)),
+        "profile": profiled_retrieval(params, query, cfg, k, dev),
     }
     del params
     torch.cuda.empty_cache()
@@ -1360,7 +1474,58 @@ def recsys(dev) -> dict:
                  phase="recsys_example")
     require(ex["agrees"] is True and ex["path"] == "CUDA kernel",
             f"retrieval example: {ex['path']} agrees {ex['agrees']}")
+    require(ex["launches"]["retrieval_topk"] == 2,
+            f"retrieval example: {ex['launches']['retrieval_topk']} retrieval_topk launches for "
+            "two calls")
     return out
+
+
+def profiled_retrieval(params, query, cfg, k: int, dev) -> dict:
+    """Where one ``retrieval_score`` call spends its time (a measurement, not
+    a path): its host time to the end of its work, the device time of each
+    kernel under ``torch.profiler``, and CUDA events around its three steps
+    (embedding gathers, the scoring product, K5) run one after another."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys as rc
+
+    def call():
+        return rc.retrieval_score(params, query, cfg, k=k, device=dev)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if str(getattr(ev, "device_type", "")).endswith("CUDA") and us > 0:
+            kernels.append({"kernel": ev.key[:100], "device_us": us, "calls": ev.count})
+    kernels.sort(key=lambda row: -row["device_us"])
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    steps = {"gathers": [], "scoring_product": [], "retrieval_topk": []}
+    for _ in range(10):
+        marks[0].record()
+        emb, _ = rc._embed_fields(params, rc._sparse_ids(params, query, dev))
+        q = emb.sum(dim=1)
+        marks[1].record()
+        scores = q @ params["tables"][0, : query["n_candidates"]].T.to(q.dtype)
+        marks[2].record()
+        ops.retrieval_topk(scores, k)
+        marks[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(steps):
+            steps[name].append(marks[i].elapsed_time(marks[i + 1]))
+    return {"host_ms": host_ms, "device_us_total": sum(r["device_us"] for r in kernels),
+            "kernels": kernels[:12],
+            "event_ms": {name: statistics.median(v) for name, v in steps.items()}}
 
 
 # ----------------------------------------------------------------------
@@ -1711,7 +1876,8 @@ def main() -> int:
          "launches_phase": counted[name][0],
          **{key: counted[name][2][key] for key in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-            + (("dtype_routes",) if "dtype_routes" in counted[name][2] else ())}}
+            + tuple(key for key in ("dtype_routes", "launches_per_call")
+                    if key in counted[name][2])}}
         for name in replaces
     ]})
     say({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -66,8 +66,8 @@ _SIGNATURES = {
     "knn_minplus": ([_P] * 3 + [_I] * 3 + [_P] * 5, _I),
     "knn_minplus_bits": ([_P, _P, _I, _I, _I, _P, _P, _P], _I),
     "knn_minplus_geometry": ([_I], _I),
-    "knn_retrieval_topk": ([_P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
-    "knn_retrieval_tile": ([], _I),
+    "knn_retrieval_topk": ([_P] + [_I] * 5 + [_P] * 5, _I),
+    "knn_retrieval_slots": ([_I, _I], _I),
     "knn_flash_attention": ([_P] * 4 + [_I] * 8 + [ctypes.c_float, _P], _I),
 }
 _fns: dict[str, object] = {}
@@ -512,13 +512,50 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = True,
 # K5 retrieval_topk
 # ----------------------------------------------------------------------
 
-# largest k the kernel takes: its threshold is the k-th of a block's 1024
-# per-thread maxima
+# largest k the kernel takes: a block keeps two regions of k keys in shared
+# memory, and its last step orders at most 1,024 keys
 RETRIEVAL_MAX_K = 1024
 _RETRIEVAL_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_RETRIEVAL_KEYS = 3
-# the kernel's grid puts rows on its y axis
-RETRIEVAL_MAX_ROWS = 65535
+# fewest columns a part of a row takes, and most keys (parts x k) the last
+# block of a row merges
+RETRIEVAL_MIN_PART = 4096
+RETRIEVAL_MERGE_KEYS = 32768
+# (device, stream) -> (arrival counters, scratch): kept between calls
+_RETRIEVAL_BUFFERS: dict = {}
+
+
+def retrieval_plan(b: int, n: int, k: int, slots: int) -> int:
+    """K5's parts a row for B rows of N columns: as many blocks as the card
+    holds at once (``slots``, one wave), no part narrower than
+    ``RETRIEVAL_MIN_PART`` columns, at most ``RETRIEVAL_MERGE_KEYS`` keys for
+    the row's merge, fewer than 2^31 blocks. At least 1."""
+    b = max(1, b)
+    return max(1, min(slots // b, n // RETRIEVAL_MIN_PART, RETRIEVAL_MERGE_KEYS // k,
+                      (2**31 - 1) // b))
+
+
+@functools.lru_cache(maxsize=None)
+def retrieval_slots(dev, dtype: torch.dtype, k: int) -> int:
+    """Blocks of K5 (for this score dtype and k) the card holds at once."""
+    with torch.cuda.device(dev):
+        slots = _fn("retrieval_topk", "knn_retrieval_slots")(_RETRIEVAL_DTYPES[dtype], k)
+    if slots < 1:
+        raise RuntimeError(f"retrieval_topk: occupancy query failed with error code {-slots}")
+    return slots
+
+
+def _retrieval_buffers(dev, stream: int, rows: int, parts: int, k: int):
+    """The (device, stream)'s arrival counters (zeros, left zero by every
+    launch) and scratch keys, grown to ``rows`` and to ``parts`` parts."""
+    arrivals, scratch = _RETRIEVAL_BUFFERS.get((dev, stream), (None, None))
+    pk = parts * k
+    need = rows * (pk + pk % 2) if parts > 1 else 0
+    if arrivals is None or arrivals.numel() < rows:
+        arrivals = torch.zeros(rows, dtype=torch.int32, device=dev)
+    if scratch is None or scratch.numel() < need:
+        scratch = torch.empty(max(need, 1), dtype=torch.int64, device=dev)
+    _RETRIEVAL_BUFFERS[(dev, stream)] = (arrivals, scratch)
+    return arrivals, scratch
 
 
 def retrieval_topk(scores: torch.Tensor, k: int, *, use_kernel: bool = True):
@@ -528,13 +565,14 @@ def retrieval_topk(scores: torch.Tensor, k: int, *, use_kernel: bool = True):
     ((B, k) int32 ids, (B, k) scores in the input type), best first; equal
     scores go to the smaller column. A -inf score gives (-1, -inf), and so
     does every slot past the row's last finite score (N < k included), as in
-    the JAX package's kernel path. NaN is read as -inf. k <= 1024.
+    the JAX package's kernel path. NaN is read as -inf, -0.0 as +0.0, +inf is
+    an ordinary largest score. k <= 1024; any B.
 
     CUDA kernel: ``csrc/retrieval_topk.cu`` (replaces ``retrieval_topk_pallas``).
-    N is split across blocks of 8192 columns, each selecting its k best; the
-    kernel then runs again over those candidates until one block per row is
-    left. Each pass is one launch (three at N = 10^6, k = 100). Bound by
-    bytes: B*N scores read once, B*k*8 written.
+    One launch a call: ``retrieval_plan`` parts a row, each streaming its
+    columns once past a running threshold, the last part of a row to arrive
+    merging the parts' k best. Bound by bytes: B*N scores read once, B*k*8
+    written.
     """
     if not 1 <= k <= RETRIEVAL_MAX_K:
         raise ValueError(f"retrieval_topk: k={k}, the kernel takes 1 <= k <= {RETRIEVAL_MAX_K}")
@@ -544,25 +582,26 @@ def retrieval_topk(scores: torch.Tensor, k: int, *, use_kernel: bool = True):
     b, n = scores.shape
     if scores.dtype not in _RETRIEVAL_DTYPES:
         raise TypeError(f"retrieval_topk: dtype {scores.dtype}, expected float32/16 or bfloat16")
-    if n >= 2**31 - 1 or b > RETRIEVAL_MAX_ROWS:
+    if n >= 2**31 - 1:
         raise ValueError(f"retrieval_topk: ({b}, {n}) scores; the kernel takes at most "
-                         f"{RETRIEVAL_MAX_ROWS} rows and 2^31 - 2 columns")
+                         "2^31 - 2 columns")
     _check("scores", scores, scores.dtype, (b, n), dev)
-    out_ids = torch.empty((b, k), dtype=torch.int32, device=dev)
-    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
-    fn = _fn("retrieval_topk", "knn_retrieval_topk")
-    tile = _fn("retrieval_topk", "knn_retrieval_tile")()
-    src, code, width = scores, _RETRIEVAL_DTYPES[scores.dtype], n
-    while b:
-        tiles = max(1, -(-width // tile))
-        keys = torch.empty((b, tiles, k), dtype=torch.int64, device=dev) if tiles > 1 else None
-        with torch.cuda.device(dev):
-            rc = fn(src.data_ptr(), code, b, width, k, None if keys is None else keys.data_ptr(),
-                    out_ids.data_ptr(), out_s.data_ptr(), _stream(dev))
-        _launched("retrieval_topk", rc)
-        if keys is None:
-            break
-        src, code, width = keys, _RETRIEVAL_KEYS, tiles * k
+    out = torch.empty((2, b, k), dtype=torch.int32, device=dev)  # one allocation, two outputs
+    out_ids, out_s = out[0], out[1].view(torch.float32)
+    if b:
+        parts = retrieval_plan(b, n, k, retrieval_slots(dev, scores.dtype, k))
+        stream = _stream(dev)
+        arrivals, scratch = _retrieval_buffers(dev, stream, b, parts, k)
+        args = (scores.data_ptr(), _RETRIEVAL_DTYPES[scores.dtype], b, n, k, parts,
+                scratch.data_ptr(), arrivals.data_ptr(), out_ids.data_ptr(), out_s.data_ptr(),
+                stream)
+        fn = _fn("retrieval_topk", "knn_retrieval_topk")
+        if dev.index == torch.cuda.current_device():
+            code = fn(*args)
+        else:
+            with torch.cuda.device(dev):
+                code = fn(*args)
+        _launched("retrieval_topk", code)
     return out_ids, out_s.to(scores.dtype)
 
 

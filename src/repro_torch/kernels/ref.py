@@ -5,7 +5,8 @@ use them for CPU tensors, and the on-card check compares each CUDA kernel
 with its function here on the same inputs. The four kNN kernels follow
 ``kround_merge`` and the ``*_ref`` oracles of the JAX package: exact, no
 summation order to differ in (one float32 add, then mins). ``retrieval_topk``
-follows the JAX package's kernel path (exact too); ``flash_attention`` sums
+follows the JAX package's kernel path (exact too), and
+``retrieval_topk_parts_ref`` mirrors how K5 gets there; ``flash_attention`` sums
 in another order than any kernel, so it is held to a tolerance.
 """
 from __future__ import annotations
@@ -25,6 +26,8 @@ SLICE_ALL_PINF = 1
 SLICE_POISON = 2
 # largest (rows, N) sort retrieval_topk_ref runs at once (values + indices)
 _TOPK_TEMP_BYTES = 1 << 30
+# retrieval_keys' "no candidate" (K5's key 0), below every other key
+_NO_KEY = torch.iinfo(torch.int64).min
 # query and kv rows per block of flash_attention_ref
 _ATTN_BLOCK = 1024
 
@@ -222,6 +225,45 @@ def retrieval_topk_ref(scores: torch.Tensor, k: int):
             out_ids[r0 : r0 + step, :kk] = torch.where(top > -_INF, idx.to(torch.int32), -1)
             out_s[r0 : r0 + step, :kk] = top
     return out_ids, out_s.to(scores.dtype)
+
+
+def retrieval_keys(scores: torch.Tensor) -> torch.Tensor:
+    """K5's 64-bit keys of a (B, N) score matrix, as int64 in the same order:
+    (order-preserving float32 bits) << 32 | (0xffffffff - column), so a
+    larger key is a larger score or the same score at a smaller column;
+    NaN and -inf give ``_NO_KEY``, below every other key, -0.0 reads as +0.0."""
+    s = scores.to(torch.float32)
+    none = torch.isnan(s) | (s == -_INF)
+    bits = (s + 0.0).view(torch.int32).to(torch.int64)
+    ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+    cols = torch.arange(s.shape[1], dtype=torch.int64, device=s.device)
+    return torch.where(none, _NO_KEY, (ordered << 32) | (0xFFFFFFFF - cols))
+
+
+def retrieval_topk_parts_ref(scores: torch.Tensor, k: int, parts: int):
+    """``retrieval_topk_ref`` the way K5 computes it, in plain torch: each row
+    cut into ``parts`` parts of ceil(N / parts) columns; each part's k best
+    keys (``retrieval_keys``) and its k-th key (``_NO_KEY`` if it holds fewer
+    than k); theta_lb = the largest k-th key; of the parts' keys only those
+    >= theta_lb go on; their k best, sorted. The same answer for every
+    ``parts``: the part whose k-th key is theta_lb has k keys >= it."""
+    b, n = scores.shape
+    keys = retrieval_keys(scores)
+    width = max(1, -(-n // parts))
+    pad = torch.full((b, k), _NO_KEY, dtype=torch.int64, device=keys.device)
+    tops = []
+    for p in range(parts):
+        seg = torch.cat([keys[:, p * width : (p + 1) * width], pad], dim=1)
+        tops.append(torch.topk(seg, k, dim=1).values)  # sorted: column k-1 is the k-th key
+    theta_lb = torch.stack([t[:, k - 1] for t in tops], dim=1).amax(dim=1, keepdim=True)
+    cand = torch.cat(tops, dim=1)
+    cand = torch.where(cand >= theta_lb, cand, _NO_KEY)
+    best = torch.topk(torch.cat([cand, pad], dim=1), k, dim=1).values
+    found = best != _NO_KEY
+    ids = torch.where(found, 0xFFFFFFFF - (best & 0xFFFFFFFF), -1)
+    s = scores.to(torch.float32) + 0.0
+    top = torch.where(found, s.gather(1, ids.clamp_min(0)), -_INF)
+    return ids.to(torch.int32), top.to(scores.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool):

@@ -11,6 +11,7 @@ Inputs are made with numpy from a seed and fed to both sides. Tolerances:
   over up to H*F terms in another order); retrieval ids equal wherever the
   true scores of neighbouring ranks differ by more than 1e-8.
 """
+import functools
 import json
 import os
 import subprocess
@@ -121,6 +122,112 @@ def test_retrieval_topk_refuses_k_past_the_kernel():
     with pytest.raises(ValueError, match="1 <= k <= 1024"):
         ops.retrieval_topk(s, 0)
     assert ops.retrieval_topk(s, 1024)[0].shape == (1, 1024)
+
+
+# ---------------------------------------------------------------------------
+# K5's algorithm (parts, theta_lb, filter, select) and its plan, on the CPU
+# ---------------------------------------------------------------------------
+
+PARTS_N, PARTS_K = 5000, 24
+
+
+@functools.lru_cache(maxsize=None)
+def _parts_case(case):
+    """(scores, JAX kernel-path ids, scores) of one (3, 5000) case, k = 24."""
+    s = _scores("ties" if case == "ties" else "neg_inf" if case == "neg_inf" else "plain",
+                3, PARTS_N, 17)
+    if case == "ascending":
+        s = np.tile(np.arange(PARTS_N, dtype=np.float32), (3, 1))
+        s[1] = s[1, ::-1]  # descending
+        s[2] = np.float32(0.5)  # all equal: only the columns order them
+    elif case == "kth_on_boundary":
+        edge = -(-PARTS_N // 7)  # the first column of part 1 when P = 7
+        s[:, : edge - 1] = np.minimum(s[:, : edge - 1], 4.0)
+        s[:, edge + 1 :] = np.minimum(s[:, edge + 1 :], 4.0)
+        s[:, edge - 3 * PARTS_K + 2 : edge - 1 : 3] = 10.0 + np.arange(PARTS_K - 1)
+        s[:, edge - 1] = s[:, edge] = 5.0  # the k-th key ends part 0, the next starts part 1
+    ji, jd = _jax_topk(s, PARTS_K, jnp.float32)
+    return s, ji, jd
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3, 7, 64])
+@pytest.mark.parametrize("case", ["plain", "ties", "neg_inf", "ascending", "kth_on_boundary"])
+def test_retrieval_topk_parts_ref_matches_jax_kernel_path(case, parts):
+    s, ji, jd = _parts_case(case)
+    ti, td = ref.retrieval_topk_parts_ref(torch.from_numpy(s), PARTS_K, parts)
+    np.testing.assert_array_equal(ti.numpy(), ji)
+    np.testing.assert_array_equal(td.numpy(), jd)
+
+
+def test_retrieval_topk_parts_ref_narrow_types_and_fewer_columns_than_k():
+    s = _scores("ties", 4, 3000, 3)
+    s[2, ::5] = -np.inf
+    x = torch.from_numpy(s).to(torch.bfloat16)
+    for parts in (1, 5, 40):
+        got = ref.retrieval_topk_parts_ref(x, 40, parts)
+        want = ref.retrieval_topk_ref(x, 40)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    short = torch.from_numpy(_scores("plain", 3, 7, 7))
+    got = ref.retrieval_topk_parts_ref(short, 20, 3)
+    assert torch.equal(got[0], ref.retrieval_topk_ref(short, 20)[0])
+
+
+SLOTS = 528  # K5's blocks an H100 holds at once (132 SMs x 4)
+
+
+@pytest.mark.parametrize("b,n,k,want", [
+    (1, 1_000_000, 100, 244),   # the retrieval cell: 244 parts of 4,096 columns
+    (512, 1_000_000, 100, 1),   # the batched rows: one wave of whole rows
+    (1, 1_000_000, 1024, 32),   # k = 1024: the merge's 32,768 keys
+    (2, 100_000, 1024, 24),
+    (4, 200_000, 100, 48),
+    (70_000, 64, 8, 1),         # past the old 65,535-row grid limit
+    (1, 50, 64, 1),
+    (1, SLOTS * 4096, 16, SLOTS),  # the plan's largest P
+])
+def test_retrieval_plan_follows_its_rules(b, n, k, want):
+    parts = ops.retrieval_plan(b, n, k, SLOTS)
+    assert parts == want
+    assert parts >= 1
+    assert parts == 1 or b * parts <= SLOTS  # one wave
+    assert parts == 1 or n // parts >= ops.RETRIEVAL_MIN_PART  # no narrow part
+    assert parts == 1 or parts * k <= ops.RETRIEVAL_MERGE_KEYS  # the merge's keys
+    assert b * parts < 2**31
+
+
+def test_retrieval_plan_any_row_count():
+    for b in (1, 65_535, 65_536, 2**31 - 1):
+        assert ops.retrieval_plan(b, 10**6, 100, SLOTS) * b < 2**31
+
+
+def _inf_nan_scores(seed):
+    rng = np.random.default_rng(seed)
+    s = rng.standard_normal((4, 3000)).astype(np.float32)
+    s[0, ::97] = np.nan
+    s[0, 5::601] = np.inf  # 5 +inf, fewer than k
+    s[1, 3::7] = np.inf  # 428 +inf, more than k
+    s[1, ::50] = np.nan
+    s[2, 1::3] = np.nan
+    s[2, 2::11] = np.inf
+    s[3] = np.round(s[3], 1)
+    s[3, ::13] = np.inf
+    return s
+
+
+@pytest.mark.parametrize("k", [1, 30, 100])
+def test_retrieval_topk_inf_nan_matches_jax_oracle(k):
+    """+inf and NaN scattered, at least k finite scores a row: the port's
+    plain version and K5's mirror equal the JAX package's oracle (the JAX
+    kernel path reads +inf as no candidate; ROADMAP Queue C)."""
+    from repro.kernels import ref as jref
+
+    s = _inf_nan_scores(k)
+    assert (np.isfinite(s).sum(axis=1) >= k).all()
+    oi, od = jref.retrieval_topk_ref(jnp.asarray(s), k)
+    for ti, td in (ops.retrieval_topk(torch.from_numpy(s), k),
+                   ref.retrieval_topk_parts_ref(torch.from_numpy(s), k, 6)):
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(oi))
+        np.testing.assert_array_equal(td.numpy(), np.asarray(od))
 
 
 # ---------------------------------------------------------------------------
