@@ -58,7 +58,24 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    (tables equal), a journaled flush, a second batch killed mid-repair,
    recovery from the artifact plus the journal, held equal to an uncrashed
    engine loaded from the same artifact that took the same ops;
-8. ``check_retrieval_topk``: K5 against its plain version, exact (ids,
+8. ``sharded``: the vertex-sharded engine (S logical shards of one padded
+   table on the card) on the main path's BN-Graph and initial objects, held
+   to a scalar engine built there: S = 4 equal and ``ranges=auto`` builds
+   (tables equal), a 2^20-query batch routed across the shards (answers
+   equal; queries/s beside the scalar engine's), three flushes of the main
+   path's traffic with the collective halo and one (a fifth of it) with the
+   host halo (flush stats and tables equal after each; seconds,
+   ``halo_rounds_collective`` and ``halo_fallbacks`` a flush), a repartition
+   flush under a skewed query histogram with a read pinned to the epoch
+   before it, the hottest shard replicated twice under both policies
+   (answers equal, every replica buffer byte-identical to its primary's
+   block), save at S = 4 and load at S = 1, 2 and 8 with a flush each; the
+   launches of the sharded engines' own calls, the counts set to 0 just
+   before each call and read just after (the scalar comparand's are not): K2's sweep in each sharded build, K1 in
+   every flush at S > 1, K3 and K2's repair rounds in the flush at S = 1;
+   then ``serve --partition shards=4,ranges=auto
+   --hot-shard 0 --hot-frac 0.8`` in a subprocess at grid 141;
+9. ``check_retrieval_topk``: K5 against its plain version, exact (ids,
    scores and the sign of zero), one launch a call, first where its one-launch
    design could go wrong: back-to-back calls on the same and on other inputs
    (the arrival counters reset), ascending, descending and all-equal rows,
@@ -70,7 +87,7 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    (512, 10^6) and at the ``retrieval_cand`` shape (1, 10^6, k = 100); times
    it (and its host enqueue) beside ``torch.topk`` at (1, 10^6) and
    (512, 10^6), on ascending scores and at k = 1024;
-9. ``recsys``: the full ``xdeepfm`` configuration on the card (1.56 GB of
+10. ``recsys``: the full ``xdeepfm`` configuration on the card (1.56 GB of
    tables from a seeded generator): ``forward`` at the serve_p99 (512) and
    serve_bulk (262,144) batches, held to a float64 evaluation and to each
    other; ``retrieval_score`` over 10^6 candidates with K5 (launch count set
@@ -78,7 +95,7 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    version's, with one call profiled (device time by kernel, CUDA events
    around its gathers, product and K5); and the retrieval example in a
    subprocess (two launches for its two kernel calls);
-10. ``check_flash_attention``: K6 against its plain version within stated
+11. ``check_flash_attention``: K6 against its plain version within stated
    tolerances (bf16 also within two ulps) on both of its routes (bf16:
    ``wgmma`` + TMA; float32: FMAs on the CUDA cores), at (1, 32768, 16/2,
    128) causal bf16, at the prefill shape (4, 2048, 16/2, 128) causal in
@@ -87,14 +104,14 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    both routes and, beside the bf16 one at 2,048 and at 32,768,
    ``scaled_dot_product_attention(enable_gqa=True)``; reads the bf16 kernel's
    registers and its HGMMA / UTMALDG count with ``cuobjdump``;
-11. ``lm``: ``serve --arch qwen2.5-3b --batch 4 --prompt-len 2048 --gen 32``
+12. ``lm``: ``serve --arch qwen2.5-3b --batch 4 --prompt-len 2048 --gen 32``
    in a subprocess (full width, full depth, bf16: 36 K6 launches in its
    prefill, counted by serve.py from 0 just before its timed run), then in
    process two full-width, two-layer twins, float32 and bf16, whose prefill
    runs once with K6 and once with the plain attention: logits within the
    stated ``LOGIT_TOL``, and the same greedy tokens over 16 decode steps
    (a row may part only at a near-tie);
-12. prints one ``{"kernels": [...]}`` line (each entry says which phase its
+13. prints one ``{"kernels": [...]}`` line (each entry says which phase its
    launch count covers) and, last, ``{"ok": true, "device": {...}}``.
 
 Bounds: ``bound_ms`` is the larger of (bytes the function must move: every
@@ -882,10 +899,10 @@ def cli(grid: int, tmp: str) -> None:
 
 
 class Both:
-    """Stages every update on an engine and on its twin."""
+    """Stages every update on an engine and on its twins."""
 
-    def __init__(self, engine, twin):
-        self.engine, self.twin = engine, twin
+    def __init__(self, engine, *twins):
+        self.engine, self.twins = engine, twins
         self.n, self.k = engine.n, engine.k
 
     @property
@@ -893,15 +910,18 @@ class Both:
         return self.engine.objects
 
     def stage_insert(self, u):
-        self.twin.stage_insert(u)
+        for twin in self.twins:
+            twin.stage_insert(u)
         return self.engine.stage_insert(u)
 
     def stage_delete(self, u):
-        self.twin.stage_delete(u)
+        for twin in self.twins:
+            twin.stage_delete(u)
         return self.engine.stage_delete(u)
 
     def stage_move(self, u, v):
-        self.twin.stage_move(u, v)
+        for twin in self.twins:
+            twin.stage_move(u, v)
         return self.engine.stage_move(u, v)
 
 
@@ -1090,7 +1110,7 @@ def main_path(grid: int, k: int, dev) -> tuple[dict, dict]:
         "topk_merge": phase_s["t_purge_merge_s"] * 1e3 / out["launches"]["topk_merge"],
     }
     out["profiled_flush"] = profiled_flush(knn, engine, mset, rng)
-    return out, {"bn": bn, "engine": engine, "mset": mset}
+    return out, {"bn": bn, "engine": engine, "mset": mset, "objects": objects, "k": k}
 
 
 def profiled_flush(knn, engine, mset: set, rng) -> dict:
@@ -1238,6 +1258,207 @@ def durability(state: dict, tmp: str) -> dict:
             and torch.equal(rec.tables[1], twin.tables[1]),
             "recovered tables differ from the uncrashed engine's")
     out["recovered_epoch"] = rec.epoch
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase: the sharded engine (S logical shards on the card) on the main
+# path's BN-Graph
+# ----------------------------------------------------------------------
+
+
+def logical(engine):
+    """An engine's (n, k) tables in vertex order, on the card."""
+    if hasattr(engine, "logical_tables"):
+        return engine.logical_tables()
+    return engine.tables[0][: engine.n], engine.tables[1][: engine.n]
+
+
+def same_tables(a, b) -> bool:
+    (ai, ad), (bi, bd) = logical(a), logical(b)
+    return torch.equal(ai, bi) and torch.equal(ad, bd)
+
+
+def sharded(state: dict, tmp: str) -> dict:
+    """The vertex-sharded engine against the scalar engine on the main path's
+    BN-Graph (its initial object set, a fresh scalar build): equal and auto
+    builds, a 2^20-query batch, three collective flushes and one host-halo
+    flush, a repartition with a pinned read, replicas under both policies,
+    save at S = 4 and load at S = 1, 2 and 8 with a flush each. Tables
+    ``torch.equal`` to the scalar engine's (logical row order) throughout.
+    The launches are those of the sharded engines' own calls (builds,
+    queries, flushes, repartition, replication, loads), the counts set to 0
+    just before each and read just after; the scalar comparand's launches
+    are not theirs and are not counted. Then ``serve --partition`` in a
+    subprocess at grid 141."""
+    from repro_torch import knn
+    from repro_torch.kernels import ops
+
+    bn, objects, k = state["bn"], state["objects"], state["k"]
+    out: dict = {"phase": "sharded", "n": bn.n, "k": k, "shards": 4}
+    own = {name: 0 for name in ops.launches()}  # the sharded engines' launches
+
+    def counted(fn, *args, **kwargs):
+        """``fn(...)``, a sharded engine's call, with the launch counts set to 0
+        just before it and read just after; returns its result and the
+        launches it made (also added to ``own``)."""
+        ops.reset_launches()
+        result = fn(*args, **kwargs)
+        launched = {name: count for name, count in ops.launches().items() if count}
+        for name, count in launched.items():
+            own[name] += count
+        return result, launched
+
+    t_phase = time.perf_counter()
+    scalar = knn.build_engine(bn, objects, k)
+    t0 = time.perf_counter()
+    eng, build_launches = counted(knn.build_sharded_engine, bn, objects, k, plan="shards=4")
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    require(same_tables(eng, scalar), "S = 4 build differs from the scalar build")
+    auto, auto_launches = counted(knn.build_sharded_engine, bn, objects, k,
+                                  plan="shards=4,ranges=auto")
+    out["launches_build"] = {"equal": build_launches, "auto": auto_launches}
+    require(build_launches.get("sweep_merge_levels", 0) > 0
+            and auto_launches.get("sweep_merge_levels", 0) > 0,
+            f"a sharded build launched no sweep_merge_levels: {out['launches_build']}")
+    require(same_tables(auto, scalar) and auto.stats()["uneven_ranges"],
+            "ranges=auto build differs from the scalar build, or is not uneven")
+    out["auto_starts"] = auto.stats()["shard_starts"]
+    out["row_padding_overhead"] = {"equal": eng.stats()["row_padding_overhead"],
+                                   "auto": auto.stats()["row_padding_overhead"]}
+    del auto
+
+    # one 2^20-query batch, mixed per-query k, routed across the shards
+    rng = np.random.default_rng(31)
+    nq = 1 << 20
+    us = rng.integers(0, bn.n, size=nq).astype(np.int32)
+    ks = rng.integers(1, k + 1, size=nq).astype(np.int32)
+    got, want = counted(eng.query_batch, us, ks)[0], scalar.query_batch(us, ks)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "routed queries differ from the scalar engine's")
+    for name, e in (("sharded", eng), ("scalar", scalar)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            e.query_batch(us, ks)
+        torch.cuda.synchronize()
+        out[f"queries_per_s_{name}"] = 5 * nq / (time.perf_counter() - t0)
+    del got, want
+
+    mset = set(objects.tolist())
+    flushes = []
+
+    def flush(engines, sizes=(300, 180, 180)):
+        """The main path's traffic on every engine and the scalar one, each
+        flushed: stats dicts and tables equal to the scalar engine's."""
+        staged = stage_traffic(knn, Both(*engines, scalar), mset, rng, *sizes)
+        recs = []
+        for e in engines:
+            before = e.stats()
+            t0 = time.perf_counter()
+            res, launched = counted(e.flush_updates)
+            torch.cuda.synchronize()
+            after = e.stats()
+            recs.append({"shards": e.num_shards, "halo": e.halo, "staged": staged,
+                         "seconds": time.perf_counter() - t0, **res,
+                         **{key: after[key] - before[key]
+                            for key in ("halo_rounds_collective", "halo_fallbacks")},
+                         "launches": launched})
+            # S > 1 merges every shard's rows in K1; S = 1 runs the scalar
+            # engine's own rounds (K3 frontier, K2 repair)
+            need = ("topk_merge",) if e.num_shards > 1 else ("frontier_relax", "sweep_merge")
+            require(all(launched.get(name, 0) > 0 for name in need),
+                    f"S = {e.num_shards} flush launched none of {need}: {launched}")
+        t0 = time.perf_counter()
+        want = scalar.flush_updates()
+        torch.cuda.synchronize()
+        for e, rec in zip(engines, recs):
+            rec["scalar_seconds"] = time.perf_counter() - t0
+            require(all(rec[key] == val for key, val in want.items()),
+                    f"sharded flush took another path than the scalar one: {rec} {want}")
+            require(same_tables(e, scalar),
+                    f"S = {e.num_shards} ({e.halo} halo) tables differ after a flush")
+        flushes.extend(recs)
+
+    eng.keep_epochs = 4
+    for _ in range(3):
+        flush([eng])
+    eng.halo = "host"
+    flush([eng], sizes=(60, 36, 36))
+    eng.halo = "collective"
+
+    # a repartition flush under a skewed query histogram, a read pinned to the
+    # epoch before it, one flush after it
+    hot = rng.integers(0, int(eng.routing.starts[1]), size=nq // 2)
+    starts = knn.propose_starts(np.bincount(np.concatenate([us, hot]), minlength=bn.n), 4)
+    pin_us, e0 = us[:4096], eng.epoch
+    pin = [x.clone() for x in eng.query_batch(pin_us)]
+    t0 = time.perf_counter()
+    counted(eng.repartition, starts)
+    torch.cuda.synchronize()
+    out["repartition"] = {"seconds": time.perf_counter() - t0, "starts": starts.tolist(),
+                          "row_padding_overhead": eng.stats()["row_padding_overhead"]}
+    require(eng.routing.starts.tolist() == starts.tolist() and same_tables(eng, scalar),
+            "the repartition changed the tables or missed its boundaries")
+    flush([eng])
+    again = eng.query_batch(pin_us, epoch=e0)
+    require(all(torch.equal(a, b) for a, b in zip(again, pin)),
+            "a read pinned before the repartition changed")
+
+    # replicas of the hottest shard under both policies: answers equal, every
+    # replica buffer byte-identical to its primary's block
+    hot_shard = int(np.argmax(np.bincount(eng.routing.owner(hot), minlength=4)))
+    out["replicas"] = {}
+    for policy in ("round_robin", "least_outstanding"):
+        counted(eng.set_replication, {hot_shard: 2}, policy=policy)
+        t0 = time.perf_counter()
+        got = counted(eng.query_batch, us, ks)[0]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        want = scalar.query_batch(us, ks)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"replicated answers differ ({policy})")
+        for epoch in eng.retained_epochs():
+            bufs = eng.routing.replica_buffers(epoch)
+            require(all(torch.equal(b[2], bufs[b[0]][2]) and torch.equal(b[3], bufs[b[0]][3])
+                        for slot, b in bufs.items() if slot >= eng.num_shards),
+                    f"a replica buffer differs from its primary (epoch {epoch})")
+        st = eng.stats()
+        out["replicas"][policy] = {"shard": hot_shard, "seconds": seconds,
+                                   **{key: st[key] for key in ("replica_slots",
+                                      "replica_queries", "replica_batches", "replica_errors")}}
+    eng.set_replication(None)
+
+    # save at S = 4; load at S = 1, 2 and 8 (reshard-on-load), a flush each
+    art = os.path.join(tmp, "sharded.npz")
+    eng.save(art)
+    loaded = [counted(knn.load_engine, art, bn=bn, plan=f"shards={s}")[0] for s in (1, 2, 8)]
+    require(all(same_tables(e, eng) for e in loaded), "tables differ after reshard-on-load")
+    flush(loaded)
+    out["flushes"] = flushes
+    out["stats"] = {key: eng.stats()[key] for key in (
+        "shard_rows", "padded_rows", "row_padding_overhead", "shard_starts", "repartitions",
+        "halo_rounds_collective", "halo_fallbacks", "epoch")}
+    out["launches"] = own
+    del loaded, eng, scalar
+    require(all(out["launches"][name] > 0
+                for name in ("topk_merge", "sweep_merge", "sweep_merge_levels", "frontier_relax")),
+            f"a kernel was not launched on the sharded path: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+
+    served = run_cli("repro_torch.launch.serve",
+                     ["--arch", "knn-index", "--grid", str(CERT_GRID), "--k", "20",
+                      "--partition", "shards=4,ranges=auto", "--hot-shard", "0",
+                      "--hot-frac", "0.8", "--ops", "50000"], 300, phase="sharded_serve")
+    require(served["errors"] == 0 and served["updates"] > 0 and served["queries"] > 0,
+            "serve --partition: no traffic served, or a flush failed")
+    require(served["partition"]["shards"] == 4 and served["engine"]["num_shards"] == 4,
+            f"serve --partition: {served['partition']}")
+    require(len(served["repartition_rounds"]) >= 1,
+            "serve --partition ranges=auto: the skewed traffic triggered no re-split")
+    out["serve"] = {key: served[key] for key in ("queries_per_s", "updates_per_s",
+                                                 "repartition_rounds", "balance_ratio")}
     return out
 
 
@@ -1834,6 +2055,8 @@ def main() -> int:
     out, state = main_path(args.grid, cfg.k, dev)
     say(out)
     say(durability(state, tmp))
+    shard = sharded(state, tmp)
+    say(shard)
     del state
     shutil.rmtree(tmp)
     torch.cuda.empty_cache()
@@ -1864,6 +2087,11 @@ def main() -> int:
     }
     counted = {name: ("main_path", out["launches"][name], results[name])
                for name in ("topk_merge", "sweep_merge", "sweep_merge_levels", "frontier_relax")}
+    # the phases that run each kernel (the sharded engines' own launches in
+    # their phase, under launches_sharded)
+    phases = {name: ["main_path", "sharded"]
+              for name in ("topk_merge", "sweep_merge", "sweep_merge_levels", "frontier_relax")}
+    phases.update(minplus=["certify", "cli"], retrieval_topk=["recsys"], flash_attention=["lm"])
     counted["minplus"] = ("certify", cert["launches"]["minplus"], results["minplus"])
     counted["retrieval_topk"] = ("recsys", rec["launches"]["retrieval_topk"],
                                  results["retrieval_topk"])
@@ -1873,7 +2101,8 @@ def main() -> int:
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name.removesuffix('_levels')}.cu",
          "replaces": replaces[name], "launches": counted[name][1],
-         "launches_phase": counted[name][0],
+         "launches_phase": counted[name][0], "phases": phases[name],
+         **({"launches_sharded": shard["launches"][name]} if "sharded" in phases[name] else {}),
          **{key: counted[name][2][key] for key in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
             + tuple(key for key in ("dtype_routes", "launches_per_call")

@@ -221,6 +221,8 @@ def build_knn_tables(
     device="cuda",
     use_kernel: bool = True,
     plans: tuple[SweepPlan, SweepPlan] | None = None,
+    shards: int | None = None,
+    starts=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Algorithm 3, device sweeps: V_k^< up, then V_k down, no host sync.
 
@@ -229,6 +231,12 @@ def build_knn_tables(
     float32 tables (dummy row last), the layout ``QueryEngine`` serves from.
     ``plans`` lets a caller that already ran ``prepare_sweep`` (to report
     schedule stats, say) reuse the uploaded (up, down) schedules.
+
+    With ``shards`` the result is re-laid into the padded (S*(R+1), k)
+    layout ``ShardedQueryEngine`` serves from (contiguous vertex ranges,
+    equal-width or the ``starts`` boundary vector, each padded to the widest
+    range plus one dummy row) by one gather on the device, with no host
+    readback (``repro_torch.core.sharded.shard_tables``).
     """
     dev = resolve_device(device)
     ex_ids, ex_d = object_extras(bn.n, objects, k, device=dev)
@@ -239,7 +247,12 @@ def build_knn_tables(
     # bottom-up: V_k^< (Lemma 5.12)
     vkl_ids, vkl_d = run_sweep(plan_up, ex_ids, ex_d, k, use_kernel=use_kernel)
     # top-down: V_k (Lemma 5.21), extras = own V_k^< rows, still on device
-    return run_sweep(plan_down, vkl_ids, vkl_d, k, use_kernel=use_kernel)
+    vk_ids, vk_d = run_sweep(plan_down, vkl_ids, vkl_d, k, use_kernel=use_kernel)
+    if shards is None:
+        return vk_ids, vk_d
+    from repro_torch.core.sharded import shard_tables
+
+    return shard_tables(vk_ids, vk_d, bn.n, shards, starts=starts)
 
 
 def tables_to_index(vk_ids: torch.Tensor, vk_d: torch.Tensor, n: int, k: int) -> KNNIndex:

@@ -242,6 +242,7 @@ class EngineCore:
         self.use_kernel = bool(use_kernel)
         self.bn = bn
         self.frontier = "device"  # validated setter, see the property below
+        self.halo = "collective"  # validated setter, see the property below
         obj = {int(o) for o in np.asarray(objects).ravel()}
         self._objects = obj
         self._pending = set(obj)
@@ -292,6 +293,24 @@ class EngineCore:
             raise EngineConfigError(f"frontier must be 'device' or 'host', got {mode!r}")
         self._frontier = mode
 
+    @property
+    def halo(self) -> str:
+        """How cross-shard rows move during the sharded engine's repair and
+        frontier rounds: ``"collective"`` (default) serves each round's
+        unique neighbour rows into one slab on the device
+        (``repro_torch.core.sharded``); ``"host"`` replays the routed-gather
+        halo through the host (the baseline and the collective path's
+        bit-identity twin). Both produce identical tables; unknown modes
+        raise. The scalar engine and the one-shard layout have no shard
+        boundary to exchange across, so the setting is inert there."""
+        return self._halo
+
+    @halo.setter
+    def halo(self, mode: str) -> None:
+        if mode not in ("collective", "host"):
+            raise EngineConfigError(f"halo must be 'collective' or 'host', got {mode!r}")
+        self._halo = mode
+
     # ------------------------------------------------------------------
     # epochs / fault injection
     # ------------------------------------------------------------------
@@ -336,13 +355,22 @@ class EngineCore:
         place an epoch becomes visible."""
         self._epochs.publish(epoch, self._table_snapshot())
 
+    def _prepare_publish(self) -> None:
+        """Last hook inside the flush's fallible region, right before the
+        pre-swap checkpoint. A subclass that stages a layout change (the
+        sharded engine's repartition-on-flush) re-lays the working tables
+        here, so that the ``_publish_epoch`` after it makes the new tables and
+        the new layout visible in one step; a failure in here still rolls back
+        through ``_restore_tables``."""
+
     def _checkpoint(self, phase: str) -> None:
         """Fault-injection seam: no-op unless ``checkpoint_hook`` is set.
 
         A test installs a hook that raises (simulated kill-at-this-point) or
         sends queries (snapshot-isolation probes). Phases fired:
         ``post-journal-append``, ``mid-repair-round``, ``pre-swap``,
-        ``post-swap``.
+        ``post-swap``, and ``pre-repartition`` / ``mid-repartition`` when the
+        sharded engine has a staged repartition riding the flush.
         """
         hook = self.checkpoint_hook
         if hook is not None:
@@ -574,6 +602,18 @@ class EngineCore:
             self._nbr_deg = packed.deg
             self._nbr_indptr = packed.indptr
             self._nbr_indices = packed.indices
+
+    def _upload(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _nbr_slice(self, t: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Device (n+1, t) adjacency slice for one width bucket, cached."""
+        if t not in self._nbr_by_t:
+            self._nbr_by_t[t] = (
+                self._upload(self._nbr_ids[:, :t]),
+                self._upload(self._nbr_w[:, :t]),
+            )
+        return self._nbr_by_t[t]
 
     def _t_bucket(self, rows: np.ndarray) -> int:
         """Smallest pow4 width (>= 8) covering the rows' max BNS degree."""
@@ -897,6 +937,10 @@ class EngineCore:
                     t0 = time.perf_counter()
                     rounds = self._repair(purged_rows)
                     t_repair = time.perf_counter() - t0
+            # staged layout changes (repartition-on-flush) ride the same
+            # epoch: the hook re-lays the working tables, so the publish below
+            # swaps tables and layout in one step
+            self._prepare_publish()
             self._checkpoint("pre-swap")
         except BaseException:
             self._restore_tables(base)
@@ -945,6 +989,10 @@ class EngineCore:
     # persistence / stats
     # ------------------------------------------------------------------
 
+    def _save_meta(self) -> dict:
+        """Layout meta merged into the artifact's meta record."""
+        return {"shards": 1}
+
     def save(self, path) -> None:
         """Write the index artifact: one npz shared by build and serving.
 
@@ -976,7 +1024,7 @@ class EngineCore:
             "k": self.k,
             "epoch": self.epoch,
             "checksum": _tables_checksum(ids, dists, objects),
-            "shards": 1,
+            **self._save_meta(),
         }
         np.savez_compressed(
             path,
@@ -988,6 +1036,10 @@ class EngineCore:
         )
         if self._journal is not None:
             self._journal.truncate()
+
+    def _extra_stats(self) -> dict:
+        """Layout counters merged into ``stats()``."""
+        return {}
 
     def stats(self) -> dict:
         """Serving counters."""
@@ -1001,6 +1053,7 @@ class EngineCore:
             "epochs_retained": len(retained),
             "keep_epochs": self.keep_epochs,
             "epoch_table_bytes": len(retained) * self._table_bytes(),
+            **self._extra_stats(),
             **self._stats,
         }
 
@@ -1156,9 +1209,6 @@ class QueryEngine(EngineCore):
             self._vk_d = self._vk_d.clone()
             self._tables_shared = False
 
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-
     def _gather_batch(self, us: np.ndarray, ks: np.ndarray, snap: tuple, epoch: int):
         return ops.serve_gather(snap[0], snap[1], self._upload(us), self._upload(ks))
 
@@ -1183,15 +1233,6 @@ class QueryEngine(EngineCore):
             self._upload(cand_ids), self._upload(cand_d), self.k,
             use_kernel=self.use_kernel,
         )
-
-    def _nbr_slice(self, t: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """Device (n+1, t) adjacency slice for one width bucket, cached."""
-        if t not in self._nbr_by_t:
-            self._nbr_by_t[t] = (
-                self._upload(self._nbr_ids[:, :t]),
-                self._upload(self._nbr_w[:, :t]),
-            )
-        return self._nbr_by_t[t]
 
     def _repair_part(self, part: np.ndarray) -> np.ndarray:
         self._own_tables()

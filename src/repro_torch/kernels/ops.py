@@ -16,9 +16,10 @@ tensors are on (the on-card comparison uses that).
 Every kernel launch adds one to ``LAUNCHES[name]``; nothing else does.
 
 The remaining functions (``serve_gather``, ``rows_containing``, ``rows_merge``,
-``rows_purge``, ``rows_purge_merge``) are plain tensor code around
-``topk_merge``, as they were plain array code around it in the JAX package.
-Tables stay int32 / float32; indices widen to int64 only at the indexing call.
+``rows_purge``, ``rows_purge_merge``, and the sharded engine's ``shard_*`` and
+``halo_*`` ops) are plain tensor code around ``topk_merge``, as they were plain
+array code around it in the JAX package. Tables stay int32 / float32; indices
+widen to int64 only at the indexing call.
 """
 from __future__ import annotations
 
@@ -758,3 +759,151 @@ def rows_purge_merge(
     cat_ids = torch.cat([pid, cand_ids], dim=1)
     cat_d = torch.cat([pd, cand_d.to(vk_d.dtype)], dim=1)
     return _merge_into(vk_ids, vk_d, rows, cat_ids, cat_d, k, use_kernel)
+
+
+# ----------------------------------------------------------------------
+# shard ops: the sharded engine's S row blocks of one padded tensor
+#
+# ``repro_torch.core.sharded`` keeps the tables as one (S*(R+1), k) tensor:
+# shard ``s`` owns rows [s*(R+1), (s+1)*(R+1)), its last row its own dummy
+# gather row (-1, +inf). Where the JAX package runs one ``shard_map`` block a
+# shard, these ops run every shard in one call: a batch is grouped by owner
+# shard into an (S, B) matrix of GLOBAL padded rows (row s = shard s's part,
+# -1 = padding), and each shard's row offset localises its part exactly as
+# ``shard_local_rows`` does, so a pad reads and writes its own shard's dummy
+# row. At S = 1 the tensor is one block and each op is the JAX block op.
+# ----------------------------------------------------------------------
+
+
+def shard_local_rows(block_rows: int, rows: torch.Tensor, row_offset) -> torch.Tensor:
+    """Global padded rows -> rows of a shard's block; -1 (padding) -> the
+    block's dummy row. ``row_offset`` is the shard's first global row, a
+    number or a tensor that broadcasts against ``rows``."""
+    return torch.where(rows < 0, block_rows - 1, rows - row_offset)
+
+
+def shard_rows(block_rows: int, rows: torch.Tensor) -> torch.Tensor:
+    """(S, B) global padded rows grouped by owner shard -> (S, B) int64 rows
+    of the whole padded tensor (a pad -> its shard's dummy row)."""
+    rows = rows.long()
+    off = torch.arange(rows.shape[0], device=rows.device)[:, None] * block_rows
+    return off + shard_local_rows(block_rows, rows, off)
+
+
+def shard_gather_rows(vk_ids: torch.Tensor, vk_d: torch.Tensor, rows: torch.Tensor,
+                      block_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every shard's row gather at once: (S, B) grouped rows -> (S, B, k) ids
+    and dists; padded slots come back as the pad sentinel (-1, +inf)."""
+    idx = shard_rows(block_rows, rows)
+    return vk_ids[idx], vk_d[idx]
+
+
+def shard_rows_containing(vk_ids: torch.Tensor, obj_ids: torch.Tensor,
+                          block_rows: int) -> torch.Tensor:
+    """(S, R) bool: which rows of each shard's block (its dummy row excluded)
+    hold any of ``obj_ids``. Rows past a shard's range width are all-pad and
+    never hit."""
+    blocks = vk_ids.reshape(-1, block_rows, vk_ids.shape[1])[:, :-1]
+    return torch.isin(blocks, obj_ids).any(dim=-1)
+
+
+def shard_rows_purge_merge(
+    vk_ids: torch.Tensor,    # (S*(R+1), k) int32 padded table, written in place
+    vk_d: torch.Tensor,      # (S*(R+1), k) float32
+    rows: torch.Tensor,      # (S, B) int32 GLOBAL padded rows by owner shard, -1 pad
+    block_rows: int,         # R + 1
+    del_ids: torch.Tensor,   # (D,) int32 deleted object ids
+    cand_ids: torch.Tensor,  # (S, B, P) int32 new candidates per row, -1 = padding
+    cand_d: torch.Tensor,    # (S, B, P) float32
+    k: int,
+    *,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Every shard's ``rows_purge_merge`` in one K1 launch, in place, plus the
+    (S, B) changed mask the repair rounds narrow their frontier with.
+
+    Each row's entries naming a deleted object become pad sentinels, the rest
+    and its candidates go through one ``topk_merge``, and the row is stored
+    back. Object ids in the table are vertex ids, so the purge needs no
+    localisation, only the rows do. A pad slot merges its shard's dummy row
+    with all-pad candidates and stores (-1, +inf) back.
+    """
+    s, b = rows.shape
+    idx = shard_rows(block_rows, rows).reshape(-1)
+    pid, pd = _purged(vk_ids, vk_d, idx, del_ids)
+    cat_ids = torch.cat([pid, cand_ids.reshape(s * b, -1)], dim=1)
+    cat_d = torch.cat([pd, cand_d.reshape(s * b, -1).to(vk_d.dtype)], dim=1)
+    cat_d = torch.where(cat_ids < 0, _INF, cat_d)
+    m_ids, m_d = topk_merge(cat_ids.contiguous(), cat_d.contiguous(), k, use_kernel=use_kernel)
+    changed = ((m_ids != vk_ids[idx]) | (m_d != vk_d[idx])).any(dim=1)
+    vk_ids[idx] = m_ids
+    vk_d[idx] = m_d
+    return changed.reshape(s, b)
+
+
+# ----------------------------------------------------------------------
+# halo building blocks: the collective rounds of the sharded engine build
+# their candidates from a received slab with these, as the JAX package's
+# shard_map programs do, so the candidate order and pad semantics are the
+# routed path's
+# ----------------------------------------------------------------------
+
+_I32_SENTINEL = 2**31 - 1  # sorts past every valid vertex id
+_FOLD_BYTES = 1 << 28  # largest (R, c, B) temporary halo_fold_min makes at once
+
+
+def masked_unique(x: torch.Tensor) -> torch.Tensor:
+    """Sorted unique of the non-negative entries of ``x``, -1 padded to the
+    length of ``x`` (flattened): exactly ``np.unique`` of the valid entries,
+    then pads."""
+    flat = torch.where(x < 0, _I32_SENTINEL, x).to(torch.int32).reshape(-1)
+    srt = torch.sort(flat).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[1:] = srt[1:] != srt[:-1]
+    keep = first & (srt < _I32_SENTINEL)
+    compact = torch.sort(torch.where(keep, srt, _I32_SENTINEL)).values
+    return torch.where(compact == _I32_SENTINEL, -1, compact)
+
+
+def halo_candidates(
+    recv_ids: torch.Tensor,  # (M, k) int32 received neighbour rows
+    recv_d: torch.Tensor,    # (M, k) float32
+    slot: torch.Tensor,      # (B, t) int32 receive-slab row per neighbour (M = miss)
+    w: torch.Tensor,         # (B, t) float32 edge weights (pad value irrelevant)
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Received halo rows -> per-receiver (B, t*k) repair candidates,
+    neighbour-major and table-column-minor, pads (id < 0, every miss slot
+    included) at +inf: the routed host repair's candidates, bit for bit (one
+    float32 add either way)."""
+    b, t = slot.shape
+    m = recv_ids.shape[0]
+    safe = torch.clamp(slot.long(), max=m - 1)
+    hit = (slot < m)[..., None]
+    g_ids = torch.where(hit, recv_ids[safe], -1)          # (B, t, k)
+    g_d = w[..., None] + recv_d[safe]
+    cand_ids = g_ids.reshape(b, t * k)
+    cand_d = torch.where(cand_ids < 0, _INF, g_d.reshape(b, t * k))
+    return cand_ids, cand_d.to(torch.float32)
+
+
+def halo_fold_min(
+    recv: torch.Tensor,  # (M, B) float32 received gated send rows
+    slot: torch.Tensor,  # (R, t) int32 receive-slab row per neighbour (M = miss)
+    w: torch.Tensor,     # (R, t) float32 edge weights
+) -> torch.Tensor:
+    """Received frontier send rows -> per-receiver (R, B) min over neighbours
+    of (weight + row), a few neighbour columns at a time; miss slots read
+    +inf. Each candidate is one float32 add and min is order-free, so the
+    values are the routed fold's and the scalar round's."""
+    r, t = slot.shape
+    m, b = recv.shape
+    cand = torch.full((r, b), _INF, dtype=torch.float32, device=recv.device)
+    # neighbour columns a few at a time, (R, c, B) of at most _FOLD_BYTES
+    step = max(1, _FOLD_BYTES // max(1, r * b * 4))
+    for j in range(0, t, step):
+        sl = slot[:, j:j + step]
+        rows = w[:, j:j + step, None] + recv[torch.clamp(sl.long(), max=m - 1)]
+        rows = torch.where((sl < m)[..., None], rows, _INF)
+        torch.minimum(cand, rows.amin(dim=1), out=cand)
+    return cand

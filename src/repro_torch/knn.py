@@ -21,6 +21,12 @@ Moving-fleet serving (see ``repro_torch.workloads``): ``FleetSim`` drives
 vehicles along shortest-path trips and each ``sim.tick()`` yields the
 (src, dst) moves to stage; ``flush_updates`` applies them as one fused batch.
 
+Vertex-sharded serving: ``build_sharded_engine(g, objects, k, plan="shards=4")``
+splits the tables into S contiguous vertex ranges, S logical shards of one
+padded table on one card (``repro_torch.core.sharded``), and serves the same
+results as the scalar engine; ``load_engine(path, plan=...)`` reshards an
+artifact on load.
+
 Durability: ``load_engine(..., journal="wal.bin")`` attaches a write-ahead
 ``UpdateJournal`` and replays any records a killed process left behind
 (crash recovery to identical tables, see ``repro_torch.core.journal``).
@@ -50,7 +56,9 @@ from repro_torch.core.errors import (
 )
 from repro_torch.core.index import KNNIndex, indices_equivalent
 from repro_torch.core.journal import UpdateJournal
+from repro_torch.core.partition import PartitionPlan, propose_starts
 from repro_torch.core.reference import knn_index_cons_plus
+from repro_torch.core.sharded import ShardedQueryEngine, ShardRoutingTable
 from repro_torch.core.updates import delete_object, insert_object, move_object
 from repro_torch.graph.csr import Graph
 from repro_torch.graph.generators import pick_objects, road_network
@@ -65,9 +73,12 @@ __all__ = [
     "Graph",
     "JournalError",
     "KNNIndex",
+    "PartitionPlan",
     "QueryEngine",
     "QueryError",
     "RepError",
+    "ShardRoutingTable",
+    "ShardedQueryEngine",
     "StagedUpdateError",
     "UpdateJournal",
     "build_bngraph",
@@ -75,6 +86,7 @@ __all__ = [
     "build_index",
     "build_knn_index",
     "build_knn_tables",
+    "build_sharded_engine",
     "delete_object",
     "indices_equivalent",
     "insert_object",
@@ -82,6 +94,7 @@ __all__ = [
     "load_engine",
     "move_object",
     "pick_objects",
+    "propose_starts",
     "road_network",
     "stage_random_updates",
 ]
@@ -113,16 +126,54 @@ def build_index(
     return build_knn_index(bn, objects, k, device=device, use_kernel=use_kernel)
 
 
+def build_sharded_engine(
+    graph: Graph | BNGraph,
+    objects: np.ndarray,
+    k: int,
+    *,
+    plan: PartitionPlan | str | None = None,
+    shards: int | None = None,
+    replication: dict[int, int] | None = None,
+    device="cuda",
+    use_kernel: bool = True,
+) -> ShardedQueryEngine:
+    """Road network -> vertex-sharded serving engine, S logical shards on one
+    card.
+
+    ``plan`` (a ``PartitionPlan`` or its spec string, ``"shards=4,ranges=auto"``
+    say) names the whole layout: shard count, range boundaries (equal-width,
+    explicit, or object-density ``auto``), replication and routing policy.
+    The engine serves the scalar engine's results exactly under every layout.
+    ``shards=`` and ``replication=`` are the legacy kwargs, turned into the
+    equivalent plan (passing them beside ``plan`` raises
+    ``EngineConfigError``); no plan and ``shards=None`` is one shard.
+    """
+    plan = PartitionPlan.resolve(plan, shards=shards, replication=replication)
+    bn = graph if isinstance(graph, BNGraph) else build_bngraph(graph)
+    return ShardedQueryEngine.build(bn, objects, k, plan=plan, device=device,
+                                    use_kernel=use_kernel)
+
+
 def load_engine(
     path,
     *,
     bn: BNGraph | None = None,
+    plan: PartitionPlan | str | None = None,
+    shards: int | None = None,
+    replication: dict[int, int] | None = None,
     device="cuda",
     use_kernel: bool = True,
     journal=None,
-) -> QueryEngine:
-    """Load a ``QueryEngine.save`` / ``knn_build --out`` artifact (written by
-    either package) into a scalar engine.
+) -> QueryEngine | ShardedQueryEngine:
+    """Load a ``save`` / ``knn_build --out`` artifact (written by either
+    package).
+
+    A ``plan`` (or the legacy ``shards=`` / ``replication=``) that names a
+    shard count, ranges or replication loads into a ``ShardedQueryEngine``
+    under that layout whatever the writer's shard count (reshard-on-load:
+    the artifact stores the logical vertex-order tables, plus any uneven
+    boundaries and replication plan the writer served under, reused at the
+    writer's shard count). No plan keeps the scalar engine.
 
     ``journal`` (a path or ``UpdateJournal``) attaches the write-ahead journal
     and replays whatever a killed process left in it (committed flush
@@ -130,13 +181,18 @@ def load_engine(
     process was serving. Requires ``bn`` when the journal is non-empty
     (replay runs real updates).
     """
+    plan = PartitionPlan.resolve(plan, shards=shards, replication=replication)
+    if plan.shards is not None or plan.ranges is not None or plan.replication is not None:
+        return ShardedQueryEngine.load(path, bn=bn, plan=plan, device=device,
+                                       use_kernel=use_kernel, journal=journal)
     return QueryEngine.load(path, bn=bn, device=device, use_kernel=use_kernel, journal=journal)
 
 
 def stage_random_updates(engine: QueryEngine, mset: set, rng=None, count: int = 1) -> int:
     """Stage ``count`` random net object updates (the benchmark workload mix).
 
-    Draws uniform vertices from ``[0, engine.n)``: a present one is staged for
+    Draws uniform vertices from ``[0, engine.n)`` (a sharded engine is driven
+    identically: routing by owner happens at flush time): a present one is staged for
     deletion (skipped while |M| <= k+1 so rows stay full through the churn),
     an absent one for insertion. ``mset`` is the caller's membership mirror
     and is kept in sync.

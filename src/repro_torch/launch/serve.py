@@ -42,18 +42,39 @@ interleave. Reports sustained ticks/s and query p50/p99:
 query stream and the staged-update stream, so two runs with the same seed
 serve the identical op sequence.
 
+``--partition SPEC`` serves from the vertex-sharded engine
+(``ShardedQueryEngine``, S logical shards of one padded table on one card)
+instead: same results, tables row-partitioned into contiguous vertex ranges.
+One spec names the whole layout: shard count, range boundaries, replication
+and routing policy (``--shards N`` and ``--replicate SHARD:R|auto:R`` are the
+legacy spellings; mixing them with ``--partition`` is an error):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch knn-index \
+      --grid 141 --k 20 --partition shards=4,ranges=auto --hot-shard 0 --hot-frac 0.8
+
+``--hot-shard S --hot-frac F`` skews the query stream so F of each batch lands
+in shard S's vertex range (read from the live boundaries);
+``--hot-flip-round R`` re-aims it at another shard (``--hot-shard2``, default
+the opposite one) at round R. ``replicate=auto:R`` watches a sliding
+per-shard query histogram and replicates the hottest shard after the warmup
+rounds. ``ranges=auto`` watches the same window per vertex as a drift
+detector: whenever its balance ratio (the hottest shard's share x S) passes
+``--rebalance-ratio`` it proposes traffic-balanced boundaries
+(``propose_starts``) and repartitions on the next flush, at most once every
+``--rebalance-cooldown`` rounds. The JSON stats report the active plan under
+``"partition"`` and the re-split rounds under ``"repartition_rounds"``.
+
 Runs on the GPU by default and fails without one; ``--device cpu`` runs the
 plain PyTorch versions of the kernels instead, ``--no-use-kernel`` runs them
-on the card. Only the scalar engine exists in this package: the JAX
-package's sharded flags (``--partition``, ``--shards``, ``--replicate``,
-``--hot-*``, ``--rebalance-*``) and its XLA ``--compile-cache`` have no
-counterpart here.
+on the card. The JAX package's XLA ``--compile-cache`` has no counterpart
+here.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -127,13 +148,48 @@ def serve_lm(args) -> dict:
     return stats
 
 
-def serve_knn_fleet(args, g, bn, k: int, batch: int, t_bn: float, device) -> dict:
+def _knn_partition_plan(args):
+    """``--partition`` or the legacy ``--shards`` / ``--replicate`` -> one
+    ``PartitionPlan`` (None = the scalar engine)."""
+    if args.partition:
+        if args.shards or args.replicate:
+            raise SystemExit(
+                "--partition replaces --shards/--replicate: name the whole "
+                "layout in one spec, e.g. --partition shards=4,replicate=auto:2")
+        try:
+            plan = knn.PartitionPlan.parse(args.partition)
+        except knn.EngineConfigError as e:
+            raise SystemExit(f"--partition: {e}")
+        if plan.shards is None:
+            raise SystemExit("--partition must name shards=N")
+        return plan
+    if not args.shards:
+        if args.replicate:
+            raise SystemExit(
+                "--replicate / --partition replication need the sharded "
+                "engine (--shards N or --partition shards=N)")
+        return None
+    rep = _parse_replicate(args.replicate) if args.replicate else None
+    replication = None
+    if rep is not None:
+        replication = rep if rep[0] == "auto" else (rep,)
+    return knn.PartitionPlan(shards=args.shards, replication=replication)
+
+
+def _build_knn_engine(args, bn, objects, k: int, device, plan=None):
+    """The scalar or the sharded engine, per the resolved plan (the serving
+    loops drive both through the same query/stage/flush surface)."""
+    if plan is not None:
+        return knn.build_sharded_engine(bn, objects, k, plan=plan, device=device,
+                                        use_kernel=args.use_kernel)
+    return knn.QueryEngine.build(bn, objects, k, device=device, use_kernel=args.use_kernel)
+
+
+def serve_knn_fleet(args, g, bn, k: int, batch: int, t_bn: float, device, plan=None) -> dict:
     """Moving-fleet serving loop: fused ``stage_move`` flushes per tick."""
     sim = knn.FleetSim(g, fleet_size=args.fleet_size, seed=args.seed)
     t0 = time.perf_counter()
-    engine = knn.QueryEngine.build(
-        bn, sim.positions, k, device=device, use_kernel=args.use_kernel
-    )
+    engine = _build_knn_engine(args, bn, sim.positions, k, device, plan=plan)
     synchronize(device)
     t_build = time.perf_counter() - t0
 
@@ -163,11 +219,44 @@ def serve_knn_fleet(args, g, bn, k: int, batch: int, t_bn: float, device) -> dic
         "queries_per_s": round(args.ticks * batch / max(sum(lat), 1e-9), 1),
         "query_p50_us": round(float(np.percentile(lat, 50)) * 1e6, 1),
         "query_p99_us": round(float(np.percentile(lat, 99)) * 1e6, 1),
+        "partition": engine.partition_plan().describe() if plan is not None else None,
         "sim": sim.stats(),
         "engine": engine.stats(),
     }
     print(json.dumps(stats, indent=2))
     return stats
+
+
+def _parse_replicate(spec: str) -> tuple:
+    """``SHARD:R`` -> (shard, R); ``auto:R`` -> ("auto", R)."""
+    try:
+        shard_s, _, r_s = spec.partition(":")
+        r = int(r_s)
+        if r < 1:
+            raise ValueError
+        return ("auto", r) if shard_s == "auto" else (int(shard_s), r)
+    except ValueError:
+        raise SystemExit(f"--replicate wants SHARD:R or auto:R (R >= 1), got {spec!r}")
+
+
+def _hot_range(engine, shard: int, n: int) -> tuple[int, int]:
+    """The hot shard's vertex range, read from the live routing boundaries
+    (under uneven or repartitioned ranges the shards are not equal-width)."""
+    starts = engine.routing.starts
+    shard = shard % len(starts)
+    lo = int(starts[shard])
+    hi = int(starts[shard + 1]) if shard + 1 < len(starts) else n
+    return (min(lo, n - 1), min(max(hi, lo + 1), n))
+
+
+def _draw_queries(rng, n: int, batch: int, hot_range, hot_frac: float) -> np.ndarray:
+    """A uniform query batch with ``hot_frac`` of it redirected into
+    ``hot_range`` (the skewed-city traffic model)."""
+    us = rng.integers(0, n, size=batch)
+    if hot_frac > 0 and hot_range is not None:
+        m = rng.random(batch) < hot_frac
+        us[m] = rng.integers(hot_range[0], hot_range[1], size=int(m.sum()))
+    return us
 
 
 def _arm_injected_flush_failure(engine) -> None:
@@ -184,7 +273,8 @@ def _arm_injected_flush_failure(engine) -> None:
 
 
 def serve_knn(args) -> dict:
-    """kNN serving loop: batched queries + staged updates on a QueryEngine."""
+    """kNN serving loop: batched queries + staged updates on a QueryEngine
+    (or, under a partition plan, a ShardedQueryEngine)."""
     device = resolve_device(args.device)
     cfg = knn_index.make_smoke() if args.smoke else knn_index.make_config()
     grid = args.grid or int(np.ceil(np.sqrt(cfg.n_vertices)))
@@ -197,18 +287,21 @@ def serve_knn(args) -> dict:
     t0 = time.perf_counter()
     bn = knn.build_bngraph(g)
     t_bn = time.perf_counter() - t0
+    plan = _knn_partition_plan(args)
     if args.workload == "fleet":
         if args.artifact:
             # the fleet engine's object set must equal the sim's vehicle
             # positions, which a saved artifact cannot know about
             raise SystemExit("--artifact cannot be combined with --workload fleet")
-        return serve_knn_fleet(args, g, bn, k, min(batch, 4096), t_bn, device)
+        return serve_knn_fleet(args, g, bn, k, min(batch, 4096), t_bn, device, plan=plan)
     t0 = time.perf_counter()
     if args.artifact:
         # The artifact must come from the same (grid, seed) network: the
-        # engine stores tables + objects, the BN-Graph supplies adjacency.
+        # engine stores tables + objects, the BN-Graph supplies adjacency. A
+        # plan reshards it on load (the artifact stores the logical tables,
+        # plus any uneven boundaries the writer served under).
         engine = knn.load_engine(
-            args.artifact, bn=bn, device=device, use_kernel=args.use_kernel
+            args.artifact, bn=bn, plan=plan, device=device, use_kernel=args.use_kernel
         )
         if engine.n != g.n or engine.k != k:
             raise SystemExit(
@@ -216,11 +309,30 @@ def serve_knn(args) -> dict:
                 f"--grid/--k (n={g.n}, k={k})"
             )
     else:
-        engine = knn.QueryEngine.build(
-            bn, objects, k, device=device, use_kernel=args.use_kernel
-        )
+        engine = _build_knn_engine(args, bn, objects, k, device, plan=plan)
     synchronize(device)
     t_build = time.perf_counter() - t0
+
+    if args.hot_frac and plan is None:
+        raise SystemExit("--hot-frac needs the sharded engine (--partition shards=N)")
+    auto_reps = plan.auto_replicas() if plan is not None else 0
+    replicated_shard = None
+    if plan is not None and engine.routing.replication:
+        # an explicit plan's replication was applied at build / load time
+        replicated_shard = min(engine.routing.replication)
+    hot_range = None
+    if plan is not None and args.hot_frac:
+        hot_range = _hot_range(engine, args.hot_shard, g.n)
+    # sliding query histograms: per-shard owner counts pick the hot shard for
+    # replicate=auto; the per-vertex window feeds the ranges=auto drift
+    # detector, which re-splits whenever the window's balance ratio (the
+    # hottest shard's share x S, 1.0 = balanced) passes --rebalance-ratio, at
+    # most once every --rebalance-cooldown rounds
+    hist: deque = deque(maxlen=16)
+    auto_ranges = plan is not None and plan.ranges == "auto" and engine.num_shards > 1
+    vwin: deque = deque(maxlen=args.rebalance_window)
+    repartition_rounds: list[int] = []
+    balance_ratio = None
 
     rng = np.random.default_rng(args.seed + 1)
     mset = set(engine.objects.tolist())
@@ -228,7 +340,7 @@ def serve_knn(args) -> dict:
     rounds = max(1, args.ops // (batch + n_upd_round))
 
     # warmup: the first gather outside the timed loop
-    engine.query_batch(rng.integers(0, g.n, size=batch))
+    engine.query_batch(_draw_queries(rng, g.n, batch, hot_range, args.hot_frac))
     synchronize(device)
 
     # A failed flush (device error, corrupted batch, injected fault) must
@@ -241,12 +353,44 @@ def serve_knn(args) -> dict:
     errors = 0
     last_error = None
     for rnd in range(rounds):
-        us = rng.integers(0, g.n, size=batch)
+        if args.hot_flip_round and rnd + 1 == args.hot_flip_round:
+            # the hot city moves: re-aim the skewed traffic at another shard's
+            # range (read from the CURRENT boundaries)
+            flip_to = (
+                args.hot_shard2
+                if args.hot_shard2 is not None
+                else (args.hot_shard + engine.num_shards // 2) % engine.num_shards
+            )
+            hot_range = _hot_range(engine, flip_to, g.n)
+        us = _draw_queries(rng, g.n, batch, hot_range, args.hot_frac)
         t0 = time.perf_counter()
         engine.query_batch(us)
         synchronize(device)
         t_query += time.perf_counter() - t0
         queries += batch
+
+        if auto_ranges:
+            vwin.append(np.bincount(us, minlength=g.n))
+            wsum = np.sum(vwin, axis=0)
+            starts = engine.routing.starts
+            shares = np.add.reduceat(wsum, starts)
+            balance_ratio = float(shares.max() * engine.num_shards / max(wsum.sum(), 1))
+            cooled = (not repartition_rounds
+                      or rnd + 1 - repartition_rounds[-1] >= args.rebalance_cooldown)
+            if rnd + 1 >= 3 and cooled and balance_ratio > args.rebalance_ratio:
+                proposed = knn.propose_starts(wsum, engine.num_shards)
+                if not np.array_equal(proposed, starts):
+                    engine.repartition(proposed)  # rides a fresh epoch; old
+                    repartition_rounds.append(rnd + 1)  # epochs keep theirs
+                    hist.clear()  # owner counts now follow the new boundaries
+
+        if auto_reps and replicated_shard is None:
+            hist.append(np.bincount(engine.routing.owner(us), minlength=engine.num_shards))
+            warmup = 3 if not auto_ranges else 6  # let the ranges settle first
+            if rnd + 1 >= warmup and hist:
+                hot = int(np.argmax(np.sum(hist, axis=0)))
+                engine.set_replication({hot: auto_reps}, policy=plan.policy)
+                replicated_shard = hot
 
         if n_upd_round:
             t0 = time.perf_counter()
@@ -281,6 +425,13 @@ def serve_knn(args) -> dict:
         "updates": updates,
         "errors": errors,
         "last_error": last_error,
+        "replicate": args.replicate,
+        "replicated_shard": replicated_shard,
+        "partition": engine.partition_plan().describe() if plan is not None else None,
+        "repartitioned_at_round": repartition_rounds[0] if repartition_rounds else None,
+        "repartition_rounds": repartition_rounds,
+        "balance_ratio": round(balance_ratio, 4) if balance_ratio else None,
+        "hot_frac": args.hot_frac,
         "queries_per_s": round(queries / max(t_query, 1e-9), 1),
         "updates_per_s": round(updates / max(t_update, 1e-9), 1) if updates else 0.0,
         "ops_per_s": round((queries + updates) / max(wall, 1e-9), 1),
@@ -329,6 +480,41 @@ def main(argv=None):
                     help="make the flush of round ROUND fail just before its "
                          "epoch swap (fault-injection smoke for the "
                          "graceful-degradation path)")
+    ap.add_argument("--partition", default=None, metavar="SPEC",
+                    help="the whole partition layout as one spec, e.g. "
+                         "'shards=4,replicate=auto:2,ranges=auto' (keys: shards, "
+                         "ranges [equal | auto | 0:B1:B2...], replicate [SHARD:R | "
+                         "auto:R], policy); serves from the sharded engine, S "
+                         "logical shards on one card. ranges=auto repartitions on "
+                         "flush from the sliding query histogram")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="[legacy: use --partition shards=N] serve from the "
+                         "sharded engine with this many shards (0 = scalar engine)")
+    ap.add_argument("--replicate", default=None, metavar="SHARD:R",
+                    help="[legacy: use --partition replicate=...] replicate shard "
+                         "SHARD's blocks into R extra buffers and fan its queries "
+                         "across them; 'auto:R' picks the hottest shard from a "
+                         "sliding query histogram after a short warmup")
+    ap.add_argument("--hot-shard", type=int, default=0,
+                    help="sharded: which shard --hot-frac concentrates queries into")
+    ap.add_argument("--hot-frac", type=float, default=0.0,
+                    help="sharded: fraction of each query batch drawn from the hot "
+                         "shard's vertex range (0 = uniform)")
+    ap.add_argument("--hot-flip-round", type=int, default=0, metavar="ROUND",
+                    help="sharded: at round ROUND re-aim --hot-frac traffic at "
+                         "another shard's range (the ranges=auto drift detector's "
+                         "second re-split)")
+    ap.add_argument("--hot-shard2", type=int, default=None,
+                    help="sharded: the shard --hot-flip-round re-aims traffic at "
+                         "(default: the shard opposite --hot-shard)")
+    ap.add_argument("--rebalance-ratio", type=float, default=1.25,
+                    help="ranges=auto: re-split when the sliding window's balance "
+                         "ratio (hottest shard share x S, 1.0 = balanced) exceeds this")
+    ap.add_argument("--rebalance-window", type=int, default=16,
+                    help="ranges=auto: rounds of per-vertex query history the drift "
+                         "detector slides over")
+    ap.add_argument("--rebalance-cooldown", type=int, default=4,
+                    help="ranges=auto: minimum rounds between re-splits")
     ap.add_argument("--device", default="cuda")
     ap.add_argument(
         "--use-kernel", action=argparse.BooleanOptionalAction, default=True,

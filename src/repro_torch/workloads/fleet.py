@@ -3,16 +3,18 @@
 Each vehicle occupies one vertex (the engine's candidate objects ARE vertices,
 so two vehicles never share one — a blocked vehicle waits, which is also what
 real congestion looks like). A vehicle drives the shortest path to a randomly
-drawn destination, one street per tick, and draws a fresh trip on arrival. ``tick()`` returns the batch of ``(src, dst)`` moves executed that
+drawn destination, one street per tick by default, and draws a fresh trip on
+arrival. ``tick()`` returns the batch of ``(src, dst)`` moves executed that
 tick, in an order that is always valid to stage sequentially into
 ``QueryEngine.stage_move`` (a vertex freed earlier in the tick may be entered
 later in the same tick, never the reverse).
 
-This is the JAX package's simulator at one street per tick, copied: the same
-seed gives the same positions and the same moves, tick for tick.
+This is the JAX package's simulator, copied: the same seed and
+``steps_per_tick`` give the same positions and the same moves, tick for tick.
 
 The simulator is deliberately host-side and deterministic (seeded), so a
-replayed movement trace measures the engine, not the traffic.
+replayed movement trace through different update strategies (fused moves, or
+split delete + insert flushes) measures the engine, not the traffic.
 """
 from __future__ import annotations
 
@@ -64,12 +66,17 @@ class FleetSim:
     fleet_size:  number of vehicles; must leave room to maneuver
                  (``fleet_size < g.n``).
     seed:        RNG seed for initial positions and trip destinations.
+    steps_per_tick: streets each vehicle advances per tick (the tick rate
+                 knob: 1 simulates dense ticks, larger values sparser ones).
     """
 
-    def __init__(self, g: Graph, *, fleet_size: int, seed: int = 0):
+    def __init__(self, g: Graph, *, fleet_size: int, seed: int = 0, steps_per_tick: int = 1):
         if not 0 < fleet_size < g.n:
             raise ValueError(f"fleet_size must be in (0, {g.n}), got {fleet_size}")
+        if steps_per_tick < 1:
+            raise ValueError("steps_per_tick must be >= 1")
         self.g = g
+        self.steps_per_tick = int(steps_per_tick)
         self._rng = np.random.default_rng(seed)
         self._pos = [int(v) for v in self._rng.choice(g.n, size=fleet_size, replace=False)]
         self._occupied = set(self._pos)
@@ -111,32 +118,33 @@ class FleetSim:
         """
         moves: list[tuple[int, int]] = []
         self.ticks += 1
-        for i in self._rng.permutation(self.fleet_size):
-            i = int(i)
-            if not self._routes[i]:
-                self._assign_trip(i)
-            nxt = self._routes[i][-1]
-            if nxt in self._occupied:
-                # Blocked. Two vehicles heading into each other would
-                # otherwise deadlock forever (both next-vertices stay
-                # occupied), so after two blocked steps the vehicle gives
-                # up on this trip and routes somewhere else — a detour.
-                self.blocked_total += 1
-                self._blocked_streak[i] += 1
-                if self._blocked_streak[i] >= 2:
+        for _ in range(self.steps_per_tick):
+            for i in self._rng.permutation(self.fleet_size):
+                i = int(i)
+                if not self._routes[i]:
                     self._assign_trip(i)
-                    self.reroutes += 1
-                    self._blocked_streak[i] = 0
-                continue
-            self._blocked_streak[i] = 0
-            cur = self._pos[i]
-            self._occupied.discard(cur)
-            self._occupied.add(nxt)
-            self._pos[i] = nxt
-            self._routes[i].pop()
-            if not self._routes[i]:
-                self.trips_completed += 1
-            moves.append((cur, nxt))
+                nxt = self._routes[i][-1]
+                if nxt in self._occupied:
+                    # Blocked. Two vehicles heading into each other would
+                    # otherwise deadlock forever (both next-vertices stay
+                    # occupied), so after two blocked steps the vehicle gives
+                    # up on this trip and routes somewhere else — a detour.
+                    self.blocked_total += 1
+                    self._blocked_streak[i] += 1
+                    if self._blocked_streak[i] >= 2:
+                        self._assign_trip(i)
+                        self.reroutes += 1
+                        self._blocked_streak[i] = 0
+                    continue
+                self._blocked_streak[i] = 0
+                cur = self._pos[i]
+                self._occupied.discard(cur)
+                self._occupied.add(nxt)
+                self._pos[i] = nxt
+                self._routes[i].pop()
+                if not self._routes[i]:
+                    self.trips_completed += 1
+                moves.append((cur, nxt))
         self.moves_total += len(moves)
         return moves
 
@@ -151,12 +159,14 @@ class FleetSim:
         }
 
 
-def drive_fleet_ticks(engine, tick_moves, *, batch: int, rng) -> dict:
+def drive_fleet_ticks(engine, tick_moves, *, batch: int, rng, split: bool = False) -> dict:
     """The moving-fleet serving loop of ``launch/serve.py``: for every tick's
-    move batch, stage each move (``stage_move``), serve one timed query
-    batch, then flush. ``tick_moves`` is any iterable of (src, dst) move
-    lists: live ``FleetSim.tick()`` calls or a pre-generated trace being
-    replayed.
+    move batch, stage the movement (fused ``stage_move``, or with
+    ``split=True``, the baseline, a delete flush followed by staged inserts),
+    serve one timed query batch, then flush. ``tick_moves`` is any iterable
+    of (src, dst) move lists: live ``FleetSim.tick()`` calls or a
+    pre-generated trace being replayed. The loop is engine-agnostic: the
+    scalar ``QueryEngine`` and the ``ShardedQueryEngine`` are driven alike.
 
     The query latency is taken to the end of the batch on the engine's
     device (a synchronize, not just the enqueue).
@@ -168,8 +178,15 @@ def drive_fleet_ticks(engine, tick_moves, *, batch: int, rng) -> dict:
     ticks = moves_done = 0
     t0 = time.perf_counter()
     for moves in tick_moves:
-        for u, v in moves:
-            engine.stage_move(u, v)
+        if split:
+            for u, _ in moves:
+                engine.stage_delete(u)
+            engine.flush_updates()
+            for _, v in moves:
+                engine.stage_insert(v)
+        else:
+            for u, v in moves:
+                engine.stage_move(u, v)
         t1 = time.perf_counter()
         engine.query_batch(rng.integers(0, engine.n, size=batch))
         synchronize(engine.device)

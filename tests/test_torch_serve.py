@@ -101,8 +101,11 @@ def test_knn_build_out_then_serve_artifact(tmp_path, capsys):
     assert out["engine"]["staged_queue_depth"] == 0  # the failed batch was retried
     assert out["engine"]["flushes"] == out["rounds"] - 1
     assert out["engine"]["flushes_failed"] == 1
-    for key in ("partition", "replicate", "replicated_shard", "hot_frac"):
-        assert key not in out
+    # the scalar engine reports the sharded keys unset, as the JAX serve.py does
+    assert {key: out[key] for key in ("partition", "replicate", "replicated_shard", "hot_frac",
+                                      "repartition_rounds", "repartitioned_at_round")} == {
+        "partition": None, "replicate": None, "replicated_shard": None, "hot_frac": 0.0,
+        "repartition_rounds": [], "repartitioned_at_round": None}
 
 
 def test_serve_loads_a_jax_written_artifact(tmp_path, capsys):

@@ -116,6 +116,7 @@ def test_importing_the_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
         "import repro_torch.launch.serve, repro_torch.core.verify, repro_torch.core.journal\n"
         "import repro_torch.workloads, repro_torch.device\n"
+        "import repro_torch.core.sharded, repro_torch.core.partition\n"
         "import repro_torch.models.recsys, repro_torch.models.transformer, repro_torch.models.nn\n"
         "import repro_torch.models.common, repro_torch.data.pipeline\n"
         "import repro_torch.configs.xdeepfm, repro_torch.configs.qwen2_5_3b\n"
