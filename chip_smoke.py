@@ -75,7 +75,18 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    every flush at S > 1, K3 and K2's repair rounds in the flush at S = 1;
    then ``serve --partition shards=4,ranges=auto
    --hot-shard 0 --hot-frac 0.8`` in a subprocess at grid 141;
-9. ``check_retrieval_topk``: K5 against its plain version, exact (ids,
+9. ``sanitize``: the runtime rail on the card, on the sharded phase's
+   engines: a sync planted under ``no_transfers`` must raise
+   ``SanitizerError``; with ``REPRO_SANITIZE=1``, a 2^20-query batch and a
+   flush of the main path's traffic through the grid-384 scalar engine, and
+   a collective flush through the S = 4 engine, each beside a plain-version
+   twin made from its tables: nothing raises, every post-flush table scan
+   runs and passes, tables ``torch.equal`` to the twin's, with each call's
+   ``h2d`` / ``d2h`` counts; ``check_kernel_aliasing`` (K2 tile and levels,
+   K3 both entries, K1 in place, poisoned inputs, exact); this process's
+   first build held to the cold build budgets and a second process over the
+   same build directory to the warm ones (0 libraries built);
+10. ``check_retrieval_topk``: K5 against its plain version, exact (ids,
    scores and the sign of zero), one launch a call, first where its one-launch
    design could go wrong: back-to-back calls on the same and on other inputs
    (the arrival counters reset), ascending, descending and all-equal rows,
@@ -87,7 +98,7 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    (512, 10^6) and at the ``retrieval_cand`` shape (1, 10^6, k = 100); times
    it (and its host enqueue) beside ``torch.topk`` at (1, 10^6) and
    (512, 10^6), on ascending scores and at k = 1024;
-10. ``recsys``: the full ``xdeepfm`` configuration on the card (1.56 GB of
+11. ``recsys``: the full ``xdeepfm`` configuration on the card (1.56 GB of
    tables from a seeded generator): ``forward`` at the serve_p99 (512) and
    serve_bulk (262,144) batches, held to a float64 evaluation and to each
    other; ``retrieval_score`` over 10^6 candidates with K5 (launch count set
@@ -95,7 +106,7 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    version's, with one call profiled (device time by kernel, CUDA events
    around its gathers, product and K5); and the retrieval example in a
    subprocess (two launches for its two kernel calls);
-11. ``check_flash_attention``: K6 against its plain version within stated
+12. ``check_flash_attention``: K6 against its plain version within stated
    tolerances (bf16 also within two ulps) on both of its routes (bf16:
    ``wgmma`` + TMA; float32: FMAs on the CUDA cores), at (1, 32768, 16/2,
    128) causal bf16, at the prefill shape (4, 2048, 16/2, 128) causal in
@@ -104,14 +115,14 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    both routes and, beside the bf16 one at 2,048 and at 32,768,
    ``scaled_dot_product_attention(enable_gqa=True)``; reads the bf16 kernel's
    registers and its HGMMA / UTMALDG count with ``cuobjdump``;
-12. ``lm``: ``serve --arch qwen2.5-3b --batch 4 --prompt-len 2048 --gen 32``
+13. ``lm``: ``serve --arch qwen2.5-3b --batch 4 --prompt-len 2048 --gen 32``
    in a subprocess (full width, full depth, bf16: 36 K6 launches in its
    prefill, counted by serve.py from 0 just before its timed run), then in
    process two full-width, two-layer twins, float32 and bf16, whose prefill
    runs once with K6 and once with the plain attention: logits within the
    stated ``LOGIT_TOL``, and the same greedy tokens over 16 decode steps
    (a row may part only at a near-tie);
-13. prints one ``{"kernels": [...]}`` line (each entry says which phase its
+14. prints one ``{"kernels": [...]}`` line (each entry says which phase its
    launch count covers) and, last, ``{"ok": true, "device": {...}}``.
 
 Bounds: ``bound_ms`` is the larger of (bytes the function must move: every
@@ -1441,7 +1452,10 @@ def sharded(state: dict, tmp: str) -> dict:
         "shard_rows", "padded_rows", "row_padding_overhead", "shard_starts", "repartitions",
         "halo_rounds_collective", "halo_fallbacks", "epoch")}
     out["launches"] = own
-    del loaded, eng, scalar
+    del loaded
+    # the sanitize phase flushes these two again, under the sync guard
+    state["sharded_engines"] = {"scalar": scalar, "sharded": eng}
+    del eng, scalar
     require(all(out["launches"][name] > 0
                 for name in ("topk_merge", "sweep_merge", "sweep_merge_levels", "frontier_relax")),
             f"a kernel was not launched on the sharded path: {out['launches']}")
@@ -1459,6 +1473,149 @@ def sharded(state: dict, tmp: str) -> dict:
             "serve --partition ranges=auto: the skewed traffic triggered no re-split")
     out["serve"] = {key: served[key] for key in ("queries_per_s", "updates_per_s",
                                                  "repartition_rounds", "balance_ratio")}
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase: the sanitizer rail on the card, on the sharded phase's engines
+# ----------------------------------------------------------------------
+
+_BUILD_PROBE = """
+import json, sys
+import numpy as np
+from repro_torch import knn
+from repro_torch.analysis import sanitize
+from repro_torch.kernels import _build
+
+# the parent's build directory, named through REPRO_COMPILE_CACHE
+assert sanitize.enable_compile_cache() == _build.build_dir()
+g = knn.road_network(24, 24, seed=1)
+objects = knn.pick_objects(g.n, 0.05, seed=1)
+bn = knn.build_bngraph(g)
+counts = {}
+for api, make in (("", knn.build_engine), ("sharded_", lambda *a: knn.build_sharded_engine(
+        *a, plan="shards=4"))):
+    with sanitize.count_builds() as c:
+        eng = make(bn, objects, 8)
+    counts[api + "build"] = c.count
+    with sanitize.count_builds() as c:
+        eng.query_batch(np.arange(g.n, dtype=np.int32))
+    counts[api + "query_batch"] = c.count
+    absent = [v for v in range(g.n) if v not in set(objects.tolist())][:16]
+    for v in absent:
+        eng.stage_insert(v)
+    for v in objects[:8].tolist():
+        eng.stage_delete(v)
+    with sanitize.count_builds() as c:
+        eng.flush_updates()
+    counts[api + "flush_updates"] = c.count
+print(json.dumps({"build_dir": str(_build.build_dir()), "builds": counts}))
+"""
+
+
+def sanitize_phase(state: dict, built: list[str]) -> dict:
+    """The runtime rail on the card. A sync planted under ``no_transfers``
+    must raise ``SanitizerError`` (the guard is live). Then, in sanitizer
+    mode (``REPRO_SANITIZE=1``), one 2^20-query batch and one staged flush
+    through the sharded phase's grid-384 scalar engine and one collective
+    flush through its S = 4 engine, each beside a plain-version twin made
+    from its tables (the twins run under the guard too): nothing raises,
+    every post-flush scan runs and passes, the tables stay ``torch.equal`` to
+    the twin's; the ``h2d`` / ``d2h`` counts of each. Then the in-place
+    kernels on poisoned inputs (``check_kernel_aliasing``: K2 tile, K2
+    levels, K3 both entries, K1 in place; exact), and a second process over
+    this build directory, which must build 0 libraries (the warm budgets of
+    ``tools/torch_build_budgets.json``); this process's first build is held
+    to the cold budgets."""
+    from repro_torch import knn
+    from repro_torch.analysis import sanitize
+    from repro_torch.core.errors import SanitizerError
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    out: dict = {"phase": "sanitize"}
+    t_phase = time.perf_counter()
+
+    planted = None
+    probe = torch.ones(8, device=dev)
+    try:
+        with sanitize.no_transfers("probe"):
+            probe.sum().item()  # an implicit sync: must raise
+    except SanitizerError as e:
+        planted = str(e).splitlines()[0]
+    require(planted is not None and "`probe` path" in planted,
+            "a sync planted under no_transfers did not raise SanitizerError")
+    out["planted_sync"] = planted
+
+    scans: list[str] = []
+    scan_tables = sanitize.scan_tables
+
+    def counted_scan(*args, **kwargs):
+        scans.append(kwargs.get("context", ""))
+        return scan_tables(*args, **kwargs)
+
+    engines = state["sharded_engines"]
+    rng = np.random.default_rng(41)
+    os.environ["REPRO_SANITIZE"] = "1"
+    sanitize.scan_tables = counted_scan
+    try:
+        for name, engine in (("scalar", engines["scalar"]), ("sharded", engines["sharded"])):
+            ids, d = (x.cpu().numpy() for x in logical(engine))
+            twin = knn.QueryEngine.from_tables(ids, d, engine.k, engine.objects, bn=engine.bn,
+                                               device=dev, use_kernel=False)
+            rec: dict = {"shards": getattr(engine, "num_shards", 1), "halo": engine.halo}
+            if name == "scalar":
+                nq = 1 << 20
+                us = rng.integers(0, engine.n, size=nq).astype(np.int32)
+                ks = rng.integers(1, engine.k + 1, size=nq).astype(np.int32)
+                with sanitize.count_transfers() as t:
+                    got = engine.query_batch(us, ks)
+                want = twin.query_batch(us, ks)
+                require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                        "guarded query answers differ from the plain twin's")
+                rec["query"] = {"batch": nq, "h2d": t.h2d, "d2h": t.d2h}
+            mset = set(engine.objects.tolist())
+            staged = stage_traffic(knn, Both(engine, twin), mset, rng, 300, 180, 180)
+            before = len(scans)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with sanitize.count_transfers() as t:
+                res = engine.flush_updates()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            require(twin.flush_updates() == res, f"{name}: guarded flush took another path")
+            require(len(scans) == before + 2, f"{name}: a post-flush scan did not run")
+            require(same_tables(engine, twin),
+                    f"{name}: tables after a guarded flush differ from the plain twin's")
+            rec["flush"] = {"staged": staged, "h2d": t.h2d, "d2h": t.d2h, "seconds": seconds,
+                            **{key: res[key] for key in ("rows_purged", "rows_merged",
+                                                         "repair_rounds", "frontier_rounds")}}
+            out[name] = rec
+            del twin
+    finally:
+        sanitize.scan_tables = scan_tables
+        os.environ.pop("REPRO_SANITIZE", None)
+    out["scans"] = scans
+    state.pop("sharded_engines")
+
+    out["aliasing_cells"] = sanitize.check_kernel_aliasing(device="cuda")
+
+    # this process built the libraries cold; a second one over the same
+    # directory builds none
+    sanitize.assert_builds_within("flush_updates", cold=len(built))
+    env = dict(os.environ, PYTHONPATH=SRC, REPRO_COMPILE_CACHE=str(_build.build_dir()))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _BUILD_PROBE], capture_output=True, text=True,
+                          env=env, timeout=300)
+    require(proc.returncode == 0, f"the build probe failed:\n{proc.stderr[-4000:]}")
+    second = json.loads(proc.stdout.strip().splitlines()[-1])
+    for api in ("query_batch", "flush_updates", "sharded_query_batch", "sharded_flush_updates"):
+        sanitize.assert_builds_within(api, warm=second["builds"][api])
+    require(second["builds"]["build"] == second["builds"]["sharded_build"] == 0,
+            f"the second process built kernel libraries: {second}")
+    out["builds"] = {"first_process": built, "second_process": second["builds"],
+                     "second_process_s": time.perf_counter() - t0}
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2013,6 +2170,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script has no CPU path", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    from repro_torch.analysis import sanitize
     from repro_torch.configs.knn_index import make_config
     from repro_torch.kernels import _build
 
@@ -2026,7 +2184,9 @@ def main() -> int:
          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
     print(smi, flush=True)
 
-    say({"phase": "build", "seconds": _build.build_all(verbose=args.verbose_build),
+    with sanitize.count_builds() as built:
+        build_s = _build.build_all(verbose=args.verbose_build)
+    say({"phase": "build", "seconds": build_s, "built": built.libraries,
          "sources": [f"src/repro_torch/kernels/csrc/{name}.cu" for name in _build.KERNELS]})
 
     cfg = make_config()
@@ -2057,6 +2217,7 @@ def main() -> int:
     say(durability(state, tmp))
     shard = sharded(state, tmp)
     say(shard)
+    say(sanitize_phase(state, built.libraries))
     del state
     shutil.rmtree(tmp)
     torch.cuda.empty_cache()

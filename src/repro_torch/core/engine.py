@@ -83,10 +83,17 @@ distance tiles come back. The k-th-distance column, the checkIns pruning
 bound, never leaves the device. Queries move only the query ids up and the
 (B, k) result tiles stay on the device until the caller reads them.
 
-The JAX package's sanitizer rail has no counterpart here.
+Sanitizer rail (``repro_torch.analysis.sanitize``): every crossing on the
+query and device-flush paths goes through ``EngineCore._upload`` or
+``EngineCore._readback``, the two explicit crossings, which
+``count_transfers`` counts. With ``REPRO_SANITIZE=1`` ``query_batch`` and the
+``frontier = "device"`` flush run under ``sanitize.guard``, which turns any
+other sync on a CUDA device into a ``SanitizerError``, and every flush ends
+with ``sanitize.scan_tables`` over the published tables.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -98,6 +105,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core.bngraph import BNGraph
 from repro_torch.core.construct import build_knn_tables, tables_to_index
 from repro_torch.core.errors import (
@@ -504,8 +512,9 @@ class EngineCore:
         if us.ndim != 1:
             raise QueryError(f"queries must be a 1-D vertex array, got {us.shape}")
         epoch_r, snap = self._epochs.resolve(epoch)
-        ks, width = self._ks_array(us.shape[0], k)
-        ids, d = self._gather_batch(us, ks, snap, epoch_r)
+        with sanitize.guard("query"):
+            ks, width = self._ks_array(us.shape[0], k)
+            ids, d = self._gather_batch(us, ks, snap, epoch_r)
         self._stats["queries_served"] += int(us.shape[0])
         self._stats["query_batches"] += 1
         self._stats["last_batch_size"] = int(us.shape[0])
@@ -604,7 +613,17 @@ class EngineCore:
             self._nbr_indices = packed.indices
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        """The explicit host -> device crossing of the guarded paths: the one
+        place (with ``_readback``) that may sync under ``sanitize.guard``,
+        counted as ``h2d``."""
+        with sanitize.explicit("h2d"):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _readback(self, x: torch.Tensor) -> np.ndarray:
+        """The explicit device -> host crossing of the guarded paths, counted
+        as ``d2h``: ``x`` as a numpy array."""
+        with sanitize.explicit("d2h"):
+            return x.cpu().numpy()
 
     def _nbr_slice(self, t: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Device (n+1, t) adjacency slice for one width bucket, cached."""
@@ -662,7 +681,8 @@ class EngineCore:
         for part in self._bucket_parts(nbrs):
             state, changed_mask = self._frontier_part(state, part)
             pending.append((part, changed_mask))
-        changed_parts = [p[m.cpu().numpy()] for p, m in pending]
+        changed_parts = [p[m if isinstance(m, np.ndarray) else self._readback(m)]
+                         for p, m in pending]
         return state, changed_parts
 
     def _frontier_extract(self, state, rows: np.ndarray, src: np.ndarray):
@@ -807,7 +827,7 @@ class EngineCore:
         ).astype(np.float32)
         return rows, cand_ids, cand_d
 
-    def _insert_frontier_host(
+    def _insert_frontier_host(  # port-lint: disable=PT001(the unguarded baseline: flush_updates guards the device frontier only)
         self, inserts: list[int]
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
         """The pre-batching checkIns pipeline: one sequential host heap search
@@ -890,58 +910,65 @@ class EngineCore:
         # working references back on epoch e with the staged queue intact:
         # the flush is retryable and serving never stops.
         base = self._epochs.snapshot()
+        # Sanitizer rail: the device flush pipeline runs under the sync guard
+        # (every crossing through _upload / _readback); the "host" frontier
+        # is the measured host baseline, exempt by definition.
+        flush_guard = (
+            sanitize.guard("flush") if self._frontier == "device" else contextlib.nullcontext()
+        )
         try:
-            # -- delete side: which rows name a deleted object (device scan) --
-            purged_rows = np.empty(0, np.int32)
-            if deletes:
-                purged_rows = self._scan_delete_rows(deletes)
+            with flush_guard:
+                # -- delete side: which rows name a deleted object (device scan) --
+                purged_rows = np.empty(0, np.int32)
+                if deletes:
+                    purged_rows = self._scan_delete_rows(deletes)
 
-            # -- insert side: batched checkIns frontier, insert-first semantics --
-            # The frontier prunes against the CURRENT (pre-update) k-th bounds,
-            # exactly Algorithm 4 run before Algorithm 5 (the order the scalar
-            # ``move_object`` oracle uses). A row the pruning misses that still
-            # needs a new object in the *final* tables must have had its k-th
-            # distance raised by the deletions, i.e. it lost an entry, so it is
-            # in the purge set and the repair rounds rebuild it from its bridge
-            # neighbours anyway.
-            t0 = time.perf_counter()
-            f_rounds = 0
-            frows = np.empty(0, np.int32)
-            fc_ids = fc_d = None
-            if inserts:
-                provider = (
-                    self._insert_frontier_host
-                    if self.frontier == "host"
-                    else self._insert_frontier
-                )
-                frows, fc_ids, fc_d, f_rounds = provider(inserts)
-            t_frontier = time.perf_counter() - t0
-
-            # -- one fused purge + merge over the union of both row sets --
-            rounds = 0
-            t_purge = t_repair = 0.0
-            if purged_rows.size or frows.size:
+                # -- insert side: batched checkIns frontier, insert-first semantics --
+                # The frontier prunes against the CURRENT (pre-update) k-th bounds,
+                # exactly Algorithm 4 run before Algorithm 5 (the order the scalar
+                # ``move_object`` oracle uses). A row the pruning misses that still
+                # needs a new object in the *final* tables must have had its k-th
+                # distance raised by the deletions, i.e. it lost an entry, so it is
+                # in the purge set and the repair rounds rebuild it from its bridge
+                # neighbours anyway.
                 t0 = time.perf_counter()
-                rows = np.union1d(purged_rows, frows).astype(np.int32)
-                p = fc_ids.shape[1] if frows.size else 1
-                cand_ids = np.full((len(rows), p), -1, np.int32)
-                cand_d = np.full((len(rows), p), np.inf, np.float32)
-                if frows.size:
-                    pos = np.searchsorted(rows, frows)
-                    cand_ids[pos] = fc_ids
-                    cand_d[pos] = fc_d
-                self._purge_merge(rows, deletes, cand_ids, cand_d)
-                t_purge = time.perf_counter() - t0
-                # -- breadth-first repair of the deletion holes --
-                if purged_rows.size:
+                f_rounds = 0
+                frows = np.empty(0, np.int32)
+                fc_ids = fc_d = None
+                if inserts:
+                    provider = (
+                        self._insert_frontier_host
+                        if self.frontier == "host"
+                        else self._insert_frontier
+                    )
+                    frows, fc_ids, fc_d, f_rounds = provider(inserts)
+                t_frontier = time.perf_counter() - t0
+
+                # -- one fused purge + merge over the union of both row sets --
+                rounds = 0
+                t_purge = t_repair = 0.0
+                if purged_rows.size or frows.size:
                     t0 = time.perf_counter()
-                    rounds = self._repair(purged_rows)
-                    t_repair = time.perf_counter() - t0
-            # staged layout changes (repartition-on-flush) ride the same
-            # epoch: the hook re-lays the working tables, so the publish below
-            # swaps tables and layout in one step
-            self._prepare_publish()
-            self._checkpoint("pre-swap")
+                    rows = np.union1d(purged_rows, frows).astype(np.int32)
+                    p = fc_ids.shape[1] if frows.size else 1
+                    cand_ids = np.full((len(rows), p), -1, np.int32)
+                    cand_d = np.full((len(rows), p), np.inf, np.float32)
+                    if frows.size:
+                        pos = np.searchsorted(rows, frows)
+                        cand_ids[pos] = fc_ids
+                        cand_d[pos] = fc_d
+                    self._purge_merge(rows, deletes, cand_ids, cand_d)
+                    t_purge = time.perf_counter() - t0
+                    # -- breadth-first repair of the deletion holes --
+                    if purged_rows.size:
+                        t0 = time.perf_counter()
+                        rounds = self._repair(purged_rows)
+                        t_repair = time.perf_counter() - t0
+                # staged layout changes (repartition-on-flush) ride the same
+                # epoch: the hook re-lays the working tables, so the publish below
+                # swaps tables and layout in one step
+                self._prepare_publish()
+                self._checkpoint("pre-swap")
         except BaseException:
             self._restore_tables(base)
             self._stats["flushes_failed"] += 1
@@ -983,6 +1010,9 @@ class EngineCore:
         }
         self._trim_epoch_stats()
         self._checkpoint("post-swap")
+        if sanitize.enabled():
+            ids_h, d_h = self._host_tables()
+            sanitize.scan_tables(ids_h, d_h, self.n, context=f"flush -> epoch {new_epoch}")
         return result
 
     # ------------------------------------------------------------------
@@ -1210,18 +1240,24 @@ class QueryEngine(EngineCore):
             self._tables_shared = False
 
     def _gather_batch(self, us: np.ndarray, ks: np.ndarray, snap: tuple, epoch: int):
-        return ops.serve_gather(snap[0], snap[1], self._upload(us), self._upload(ks))
+        # the JAX engine's gather semantics for any id: a negative id wraps
+        # once from the end of the (n+1)-row table (-1 is the dummy row), then
+        # everything clamps into [0, n]; n reads the dummy row (-1, +inf)
+        n = self.n
+        vs = self._upload(us).long()
+        vs = torch.where(vs < 0, vs + n + 1, vs).clamp_(0, n)
+        return ops.serve_gather(snap[0], snap[1], vs, self._upload(ks))
 
     def _scan_delete_rows(self, deletes: list[int]) -> np.ndarray:
         del_arr = self._upload(np.asarray(deletes, np.int32))
         hit = ops.rows_containing(self._vk_ids, del_arr)
-        return torch.nonzero(hit).ravel().cpu().numpy().astype(np.int32)
+        return np.flatnonzero(self._readback(hit)).astype(np.int32)
 
     def _table_kth(self) -> np.ndarray:
-        return self._vk_d[: self.n, -1].cpu().numpy().astype(np.float64)
+        return self._readback(self._vk_d[: self.n, -1]).astype(np.float64)
 
     def _host_tables(self) -> tuple[np.ndarray, np.ndarray]:
-        return self._vk_ids[: self.n].cpu().numpy(), self._vk_d[: self.n].cpu().numpy()
+        return self._readback(self._vk_ids[: self.n]), self._readback(self._vk_d[: self.n])
 
     def _purge_merge(self, rows, deletes, cand_ids, cand_d) -> None:
         self._own_tables()
@@ -1240,7 +1276,7 @@ class QueryEngine(EngineCore):
         changed = _repair_round(
             nbr_tab, w_tab, self._upload(part), self._vk_ids, self._vk_d, self.use_kernel
         )
-        return changed.cpu().numpy()
+        return self._readback(changed)
 
     # frontier provider: the multi-source tentative distance state is one
     # (n+1, B) device matrix, private to the flush and updated in place
@@ -1269,7 +1305,7 @@ class QueryEngine(EngineCore):
     def _frontier_extract(self, state, rows: np.ndarray, src: np.ndarray):
         aff, d = _frontier_affected(self._upload(rows), state, self._fkth, self._fsrc)
         b = len(src)
-        return aff[:, :b].cpu().numpy(), d[:, :b].cpu().numpy()
+        return self._readback(aff[:, :b]), self._readback(d[:, :b])
 
 
 def _frontier_init_prog(src: torch.Tensor, n1: int) -> torch.Tensor:

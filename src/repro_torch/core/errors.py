@@ -28,10 +28,11 @@ The taxonomy, by layer:
   the journal truncates them cleanly on replay (crash recovery), so only
   a file that was never a journal raises.
 * ``SanitizerError`` — a device-residency invariant violated at runtime,
-  caught by the sanitizer rail (not ported yet): a host
-  transfer on a guarded query/flush path, a compile-budget overrun, a
-  NaN/negative-distance/corrupt-id table entry after a flush, or a hand-written
-  kernel diverging from its host oracle under poisoned buffers.
+  caught by the sanitizer rail (``repro_torch.analysis.sanitize``): an
+  implicit host sync on a guarded query/flush path, a kernel-build budget
+  overrun, a NaN/negative-distance/corrupt-id table entry after a flush, or a
+  hand-written kernel diverging from its plain version under poisoned
+  buffers.
 
 Exported through the ``repro_torch.knn`` facade.
 """

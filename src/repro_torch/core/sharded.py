@@ -104,6 +104,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core.bngraph import BNGraph
 from repro_torch.core.construct import build_knn_tables, tables_to_index
 from repro_torch.core.engine import (
@@ -650,7 +651,7 @@ class ShardedQueryEngine(EngineCore):
 
     def logical_tables(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The (n, k) tables in vertex order, on the card."""
-        rows = torch.from_numpy(self._g_of_v).to(self.device)
+        rows = self._upload(self._g_of_v)
         return self._ids_g[rows], self._d_g[rows]
 
     # ------------------------------------------------------------------
@@ -857,6 +858,8 @@ class ShardedQueryEngine(EngineCore):
             except QueryError:
                 raise  # routing misuse, not a replica fault
             except Exception as e:  # noqa: BLE001 (degrade, don't die)
+                if sanitize.is_sync_error(e):
+                    raise  # a sync under the guard is a code fault, not a replica's
                 self._rstats["replica_errors"] += 1
                 self._rstats["last_replica_error"] = f"{type(e).__name__}: {e}"
         return ops.serve_gather(snap[0], snap[1], self._route_on_card(us, layout), ks_t)
@@ -916,19 +919,19 @@ class ShardedQueryEngine(EngineCore):
         # j < widths[s] (rows past a shard's width are all-pad, never hit)
         lay = self.routing.current_layout
         hits = ops.shard_rows_containing(self._ids_g, self._del_tensor(deletes), lay.block)
-        s_idx, j_idx = np.nonzero(hits.cpu().numpy())
+        s_idx, j_idx = np.nonzero(self._readback(hits))
         valid = j_idx < lay.widths[s_idx]
         return (lay.starts[s_idx] + j_idx)[valid].astype(np.int32)
 
     def _table_kth(self) -> np.ndarray:
-        kth = self._d_g[:, -1].cpu().numpy()
+        kth = self._readback(self._d_g[:, -1])
         return kth[self._g_of_v].astype(np.float64)
 
     def _host_tables(self) -> tuple[np.ndarray, np.ndarray]:
         # always the logical vertex-order (n, k) layout: shard padding is a
         # runtime concern, not an artifact one (reshard-on-load)
         ids, d = self.logical_tables()
-        return ids.cpu().numpy(), d.cpu().numpy()
+        return self._readback(ids), self._readback(d)
 
     def _apply_rows(self, rows: np.ndarray, deletes: list[int], cand_ids, cand_d) -> np.ndarray:
         """Group a row batch by owner shard and run every shard's fused
@@ -941,13 +944,15 @@ class ShardedQueryEngine(EngineCore):
         rglob[o_sorted, slot] = self.routing.padded_rows(rows[order], o_sorted)
         src = np.full((s, rmax), len(rows), np.int64)  # a pad slot reads the pad row
         src[o_sorted, slot] = order
-        cand_ids, cand_d = (torch.as_tensor(x).to(self.device) for x in (cand_ids, cand_d))
-        ci = torch.cat([cand_ids, torch.full_like(cand_ids[:1], -1)])[self._upload(src)]
-        cd = torch.cat([cand_d, torch.full_like(cand_d[:1], _INF)])[self._upload(src)]
+        cand_ids, cand_d = (x if isinstance(x, torch.Tensor) else self._upload(x)
+                            for x in (cand_ids, cand_d))
+        src_t = self._upload(src)
+        ci = torch.cat([cand_ids, torch.full_like(cand_ids[:1], -1)])[src_t]
+        cd = torch.cat([cand_d, torch.full_like(cand_d[:1], _INF)])[src_t]
         self._own_tables()
-        changed = ops.shard_rows_purge_merge(
+        changed = self._readback(ops.shard_rows_purge_merge(
             self._ids_g, self._d_g, self._upload(rglob), self.shard_rows + 1,
-            self._del_tensor(deletes), ci, cd, self.k, use_kernel=self.use_kernel).cpu().numpy()
+            self._del_tensor(deletes), ci, cd, self.k, use_kernel=self.use_kernel))
         out = np.zeros(len(rows), dtype=bool)
         out[order] = changed[o_sorted, slot]
         return out
@@ -965,8 +970,8 @@ class ShardedQueryEngine(EngineCore):
         if self.num_shards == 1:
             self._own_tables()
             nbr_tab, w_tab = self._nbr_slice(self._t_bucket(part))
-            return _repair_round(nbr_tab, w_tab, self._upload(part), self._ids_g, self._d_g,
-                                 self.use_kernel).cpu().numpy()
+            return self._readback(_repair_round(nbr_tab, w_tab, self._upload(part), self._ids_g,
+                                                self._d_g, self.use_kernel))
         if self.halo == "collective":
             out = self._repair_part_collective(part)
             if out is not None:
@@ -974,10 +979,10 @@ class ShardedQueryEngine(EngineCore):
             self._halo_stats["halo_fallbacks"] += 1
         return self._repair_part_host(part)
 
-    def _fetch_rows(self, vs: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+    def _fetch_rows(self, vs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Routed raw-row fetch to the host (the host halo's exchange)."""
         rows = self._upload(self._route(vs)[0])
-        return self._ids_g[rows].cpu(), self._d_g[rows].cpu()
+        return self._readback(self._ids_g[rows]), self._readback(self._d_g[rows])
 
     def _routed_plan(self, part: np.ndarray):
         """The host halo's set algebra for one round over ``part``: the unique
@@ -996,7 +1001,7 @@ class ShardedQueryEngine(EngineCore):
         host (fetched, then sent back up as the receivers' slab), the shifted
         candidate lists are built from the slab, every shard merges (K1)."""
         uniq, slot, w = self._routed_plan(part)
-        f_ids, f_d = (x.to(self.device) for x in self._fetch_rows(uniq))
+        f_ids, f_d = (self._upload(x) for x in self._fetch_rows(uniq))
         cand_ids, cand_d = ops.halo_candidates(f_ids, f_d, slot, w, self.k)
         return self._apply_rows(part, [], cand_ids, cand_d)
 
@@ -1017,10 +1022,10 @@ class ShardedQueryEngine(EngineCore):
             self._ids_g, self._d_g, self._upload(serve), block))
         ci, cd = ops.halo_candidates(recv_ids, recv_d, self._upload(slotm.reshape(s * rmax, t)),
                                      self._upload(wm.reshape(s * rmax, t)), self.k)
-        changed = ops.shard_rows_purge_merge(
+        changed = self._readback(ops.shard_rows_purge_merge(
             self._ids_g, self._d_g, self._upload(rglob), block, self._del_tensor([]),
             ci.reshape(s, rmax, -1), cd.reshape(s, rmax, -1), self.k,
-            use_kernel=self.use_kernel).cpu().numpy()
+            use_kernel=self.use_kernel))
         self._halo_stats["halo_rounds_collective"] += 1
         out = np.zeros(len(part), dtype=bool)
         out[order] = changed[o_sorted, slot]
@@ -1093,7 +1098,9 @@ class ShardedQueryEngine(EngineCore):
             nb = torch.where(keep[:, None], nb, -1)
         idx = torch.where(nb < 0, size, nb)
         masks = torch.zeros((self.num_shards, size + 1), dtype=torch.int32, device=self.device)
-        masks[shard[:, None].expand_as(idx), idx] = 1
+        # a device scalar: a Python one would go up with a blocking copy
+        masks[shard[:, None].expand_as(idx), idx] = torch.ones((), dtype=masks.dtype,
+                                                               device=self.device)
         return psum_masks(masks)
 
     def _expand_receivers(self, active: np.ndarray) -> np.ndarray:
@@ -1105,7 +1112,7 @@ class ShardedQueryEngine(EngineCore):
         masks, ok = self._fmask, self._fmask_ok
         self._fmask, self._fmask_ok = [], True  # armed for the coming round
         if masks and ok:
-            m = torch.stack(masks).sum(dim=0).cpu().numpy()
+            m = self._readback(torch.stack(masks).sum(dim=0))
             return np.flatnonzero(m[:-1]).astype(np.int32)
         return self._expand_receivers_device(active)
 
@@ -1118,7 +1125,7 @@ class ShardedQueryEngine(EngineCore):
         own = self.routing.owner(active)
         mask = self._presence(self._upload(self.routing.padded_rows(active, own)),
                               self._upload(own), self._nbr_ids.shape[1])
-        return np.flatnonzero(mask.cpu().numpy()[:-1]).astype(np.int32)
+        return np.flatnonzero(self._readback(mask)[:-1]).astype(np.int32)
 
     def _repair_receivers(self, changed: np.ndarray, rows: np.ndarray) -> np.ndarray:
         if self.num_shards == 1 or self.halo != "collective":
@@ -1204,7 +1211,7 @@ class ShardedQueryEngine(EngineCore):
     def _changed_in_order(self, changed: torch.Tensor, part: np.ndarray, plan) -> np.ndarray:
         order, o_sorted, slot = plan[4:]
         out = np.zeros(len(part), dtype=bool)
-        out[order] = changed.cpu().numpy()[o_sorted, slot]
+        out[order] = self._readback(changed)[o_sorted, slot]
         return out
 
     def _frontier_part_collective(self, state, part: np.ndarray):
@@ -1216,7 +1223,7 @@ class ShardedQueryEngine(EngineCore):
         if self._fmask is not None:
             self._fmask.append(nmask)
         self._halo_stats["halo_rounds_collective"] += 1
-        return state, torch.from_numpy(self._changed_in_order(changed, part, plan))
+        return state, self._changed_in_order(changed, part, plan)
 
     def _frontier_round(self, state, nbrs: np.ndarray):
         if self.num_shards == 1 or self.halo != "collective":
@@ -1262,36 +1269,36 @@ class ShardedQueryEngine(EngineCore):
         fetched, then sent back up as the receivers' slab), the receivers fold
         weight + min over their neighbours and min-update."""
         uniq, slot, w = self._routed_plan(part)
-        send = self._fetch_send(state, uniq).to(self.device)
+        send = self._upload(self._fetch_send(state, uniq))
         return self._apply_fmin(state, part, ops.halo_fold_min(send, slot, w))
 
-    def _fetch_send(self, state, vs: np.ndarray) -> torch.Tensor:
+    def _fetch_send(self, state, vs: np.ndarray) -> np.ndarray:
         """Routed gated-row fetch to the host (the host frontier's exchange):
-        a (U, B) float32 tensor in host memory."""
+        a (U, B) float32 array."""
         rows = self._upload(self._route(vs)[0])
         own = state[rows]
         gate = (own < self._fkth[rows][:, None]) | (rows[:, None] == self._fsrc_g.long()[None, :])
-        return torch.where(gate, own, _INF).cpu()
+        return self._readback(torch.where(gate, own, _INF))
 
     def _apply_fmin(self, state, rows: np.ndarray, vals: torch.Tensor):
         """Min-update of the receivers' rows; returns (state, the per-row
-        changed mask as a bool tensor, in ``rows`` order)."""
+        changed mask as a bool tensor on the device, in ``rows`` order)."""
         g = self._upload(self.routing.padded_rows(rows))
         own = state[g]
         new = torch.minimum(own, vals)
         changed = (new < own).any(dim=1)
         state[g] = new
-        return state, changed.cpu()
+        return state, changed
 
     def _frontier_extract(self, state, rows: np.ndarray, src: np.ndarray):
         b = len(src)
         if self.num_shards == 1:
             aff, d = _frontier_affected(self._upload(rows), state, self._fkth, self._fsrc)
-            return aff[:, :b].cpu().numpy(), d[:, :b].cpu().numpy()
+            return self._readback(aff[:, :b]), self._readback(d[:, :b])
         g = self._upload(self.routing.padded_rows(rows))
         dd = state[g]
         aff = (dd < self._fkth[g][:, None]) | (g[:, None] == self._fsrc_g.long()[None, :])
-        return aff[:, :b].cpu().numpy(), dd[:, :b].cpu().numpy()
+        return self._readback(aff[:, :b]), self._readback(dd[:, :b])
 
     # ------------------------------------------------------------------
     # persistence / stats

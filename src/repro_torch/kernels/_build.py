@@ -3,9 +3,12 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with ``ctypes``. The
 libraries are built at first use, all sources in parallel (one ``nvcc`` process
-each), into ``build/`` beside ``src/``, under a
-file name keyed by a hash of the sources and flags, so a source edit rebuilds
-and an unchanged tree reuses. Nothing here runs when the module is imported:
+each), into ``build/`` beside ``src/`` (or the directory
+``REPRO_COMPILE_CACHE`` names), under a file name keyed by a hash of the
+sources and flags, so a source edit rebuilds and an
+unchanged tree reuses: a second process over the same directory builds
+nothing. ``BUILT`` lists the libraries this process compiled, in order (the
+sanitizer's ``count_builds`` reads it). Nothing here runs when the module is imported:
 a machine without ``nvcc`` can import the package and use the plain versions
 on CPU tensors.
 """
@@ -31,10 +34,13 @@ NVCC_FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+BUILT: list[str] = []
 
 
 def build_dir() -> Path:
-    return Path(__file__).resolve().parents[3] / "build"
+    """``$REPRO_COMPILE_CACHE``, else ``build/`` beside ``src/``."""
+    env = os.environ.get("REPRO_COMPILE_CACHE")
+    return Path(env) if env else Path(__file__).resolve().parents[3] / "build"
 
 
 def _nvcc() -> str:
@@ -86,6 +92,7 @@ def build_all(*, verbose: bool = False) -> float:
             if verbose:
                 print(err, file=sys.stderr)
             os.replace(tmp, path)
+            BUILT.append(path.name)
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0

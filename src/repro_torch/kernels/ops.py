@@ -697,13 +697,25 @@ def serve_gather(vk_ids, vk_d, queries: torch.Tensor, ks: torch.Tensor):
     return torch.where(mask, ids, -1), torch.where(mask & (ids >= 0), d, _INF)
 
 
+def member(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``torch.isin(x, ids)`` with no host sync: one sort of ``ids`` and a
+    ``searchsorted``. ``torch.isin`` takes a ``torch.unique`` past a few dozen
+    ids, whose output size the host reads back (a sync the sanitizer's guard
+    rejects on the card); a flush deletes hundreds."""
+    srt = torch.sort(ids.reshape(-1)).values
+    if srt.numel() == 0:
+        return torch.zeros_like(x, dtype=torch.bool)
+    pos = torch.searchsorted(srt, x.contiguous()).clamp_(max=srt.numel() - 1)
+    return srt[pos] == x
+
+
 def rows_containing(vk_ids: torch.Tensor, obj_ids: torch.Tensor) -> torch.Tensor:
     """(n,) bool: which index rows hold any of ``obj_ids`` (dummy row excluded).
 
-    The vectorized checkDel membership scan. ``torch.isin`` sorts the deleted
-    ids once instead of materialising the (n, k, D) comparison.
+    The vectorized checkDel membership scan. ``member`` sorts the deleted ids
+    once instead of materialising the (n, k, D) comparison.
     """
-    return torch.isin(vk_ids[:-1], obj_ids).any(dim=1)
+    return member(vk_ids[:-1], obj_ids).any(dim=1)
 
 
 def _merge_into(vk_ids, vk_d, rows, cat_ids, cat_d, k, use_kernel):
@@ -733,7 +745,7 @@ def _purged(vk_ids, vk_d, rows, del_ids):
     idx = rows.long()
     own_ids = vk_ids[idx]
     own_d = vk_d[idx]
-    hit = torch.isin(own_ids, del_ids)
+    hit = member(own_ids, del_ids)
     return torch.where(hit, -1, own_ids), torch.where(hit, _INF, own_d)
 
 
@@ -804,7 +816,7 @@ def shard_rows_containing(vk_ids: torch.Tensor, obj_ids: torch.Tensor,
     hold any of ``obj_ids``. Rows past a shard's range width are all-pad and
     never hit."""
     blocks = vk_ids.reshape(-1, block_rows, vk_ids.shape[1])[:, :-1]
-    return torch.isin(blocks, obj_ids).any(dim=-1)
+    return member(blocks, obj_ids).any(dim=-1)
 
 
 def shard_rows_purge_merge(

@@ -66,8 +66,10 @@ detector: whenever its balance ratio (the hottest shard's share x S) passes
 
 Runs on the GPU by default and fails without one; ``--device cpu`` runs the
 plain PyTorch versions of the kernels instead, ``--no-use-kernel`` runs them
-on the card. The JAX package's XLA ``--compile-cache`` has no counterpart
-here.
+on the card. ``--compile-cache DIR`` (``REPRO_COMPILE_CACHE`` is the
+fallback) is the kernels' build directory, the counterpart of the JAX
+package's persistent XLA cache: a second process over the same directory
+builds no kernel library.
 """
 from __future__ import annotations
 
@@ -80,6 +82,7 @@ import numpy as np
 import torch
 
 from repro_torch import knn
+from repro_torch.analysis import sanitize
 from repro_torch.configs import knn_index
 from repro_torch.configs.registry import get_arch
 from repro_torch.device import resolve_device, synchronize
@@ -515,12 +518,19 @@ def main(argv=None):
                          "detector slides over")
     ap.add_argument("--rebalance-cooldown", type=int, default=4,
                     help="ranges=auto: minimum rounds between re-splits")
+    ap.add_argument("--compile-cache", default=None, metavar="DIR",
+                    help="kernel build directory (REPRO_COMPILE_CACHE env var is the "
+                         "fallback); a second process over the same dir builds nothing")
     ap.add_argument("--device", default="cuda")
     ap.add_argument(
         "--use-kernel", action=argparse.BooleanOptionalAction, default=True,
         help="CUDA kernels (default) or, with --no-use-kernel, their plain versions",
     )
     args = ap.parse_args(argv)
+
+    # before anything builds: the libraries are looked up in, and built into,
+    # the directory named here
+    sanitize.enable_compile_cache(args.compile_cache)
 
     try:
         family = get_arch(args.arch).family

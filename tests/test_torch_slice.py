@@ -121,6 +121,7 @@ def test_importing_the_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.models.common, repro_torch.data.pipeline\n"
         "import repro_torch.configs.xdeepfm, repro_torch.configs.qwen2_5_3b\n"
         "import repro_torch.configs.registry, repro_torch.examples.retrieval_recsys\n"
+        "import repro_torch.analysis.sanitize, repro_torch.analysis.replint\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.') or m == 'triton']\n"
         "print(bad)\n"
@@ -136,7 +137,8 @@ def test_no_port_source_mentions_a_jax_import():
     pattern = re.compile(r"^\s*(import jax|from jax|import repro\b(?!_)|from repro[. ])", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(REPO, "tools", name)
-        for name in ("k6_planted_faults.py", "k2_k4_planted_faults.py", "build_sweep_ab.py")]
+        for name in ("k6_planted_faults.py", "k2_k4_planted_faults.py", "build_sweep_ab.py",
+                     "torch_sync_probe.py")]
     for root, _, names in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith((".py", ".cu", ".cuh"))]
     assert len(files) > 15
