@@ -107,14 +107,16 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    around its gathers, product and K5); and the retrieval example in a
    subprocess (two launches for its two kernel calls);
 12. ``check_flash_attention``: K6 against its plain version within stated
-   tolerances (bf16 also within two ulps) on both of its routes (bf16:
-   ``wgmma`` + TMA; float32: FMAs on the CUDA cores), at (1, 32768, 16/2,
-   128) causal bf16, at the prefill shape (4, 2048, 16/2, 128) causal in
-   bf16 and float32, and in bf16 at lengths no 128-row tile divides, T > S
-   and S > T, H = Hkv, a two-block grid, no kv rows and one query row; times
-   both routes and, beside the bf16 one at 2,048 and at 32,768,
-   ``scaled_dot_product_attention(enable_gqa=True)``; reads the bf16 kernel's
-   registers and its HGMMA / UTMALDG count with ``cuobjdump``;
+   tolerances (bf16 also within a per-element bound of its route) on both of
+   its routes (bf16 at D = 128: ``wgmma`` + TMA; float32, and bf16 at
+   D < 128: FMAs on the CUDA cores), at (1, 32768, 16/2, 128) causal bf16, at
+   the prefill shape (4, 2048, 16/2, 128) causal in bf16 and float32, in
+   bf16 at lengths no 128-row tile divides, T > S and S > T, H = Hkv, a
+   two-block grid, no kv rows and one query row, and at every other head dim
+   (8, 16, 32, 64) in both dtypes; times both routes and, beside them,
+   ``scaled_dot_product_attention(enable_gqa=True)`` (bf16 at 2,048 and
+   32,768; D = 64 bf16 and D = 32 float32 at (4, 2048, 16/2)); reads the bf16
+   kernel's registers and its HGMMA / UTMALDG count with ``cuobjdump``;
 13. ``lm``: ``serve --arch qwen2.5-3b --batch 4 --prompt-len 2048 --gen 32``
    in a subprocess (full width, full depth, bf16: 36 K6 launches in its
    prefill, counted by serve.py from 0 just before its timed run), then in
@@ -122,7 +124,20 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    runs once with K6 and once with the plain attention: logits within the
    stated ``LOGIT_TOL``, and the same greedy tokens over 16 decode steps
    (a row may part only at a near-tie);
-14. prints one ``{"kernels": [...]}`` line (each entry says which phase its
+14. ``train``: the full qwen2.5-3b (36 layers, bf16) takes ``TRAIN_STEPS``
+   ``make_lm_train`` steps at batch 1 x 2,048 ``MarkovLMStream`` tokens
+   (AdamW, float32 moments; K6 counted from 0 around the steps: one launch a
+   layer a step; step time, tokens/s, peak memory); a two-layer full-width
+   float32 twin takes one step with K6 and one with the plain attention
+   (loss, grad_norm and every gradient leaf within the stated ``TWIN_*``
+   tolerances); the full xdeepfm takes ``RECSYS_TRAIN_STEPS`` steps at the
+   training batch of ``launch/train.py`` (65,536), then one checkpoint of (params, opt_state) is
+   saved and restored, timed, every leaf equal; then in subprocesses
+   ``launch.train --smoke`` for 6 steps and again for 8 (``resumed from step
+   6``), the ``train_lm`` example (lm-15m, 150 steps, K6 at D = 32, the loss
+   down by at least 0.5) and the two kNN example twins (``quickstart``,
+   ``knn_road_service``) at their default sizes;
+15. prints one ``{"kernels": [...]}`` line (each entry says which phase its
    launch count covers) and, last, ``{"ok": true, "device": {...}}``.
 
 Bounds: ``bound_ms`` is the larger of (bytes the function must move: every
@@ -157,15 +172,22 @@ SM_LANES = 132 * 128
 # of 1024). bfloat16: the output is rounded to bfloat16 on each side, one ulp
 # of which is 2^-8 relative, and p is rounded before the PV product.
 ATTN_TOL = {torch.float32: (5e-6, 5e-6), torch.bfloat16: (2e-2, 2e-2)}
-# The bf16 route is held to two bf16 ulps of its plain version as well. The
+# Each bf16 route is held to a per-element bound of its own as well. The
 # (2e-2, 2e-2) above is as large as a typical output (an output's spread is
 # about sqrt(e / keys): 0.036 at 2,048 keys, ~0.01 at 32,768), so a kernel that
 # skipped one kv tile or read one stale stage (a row off by ~1/n_kv of its
 # mass) would pass it. 1.6e-2 |plain| is two ulps wherever |plain| lies in its
-# binade; 1e-3 is for outputs near 0, where the rounding of p to bf16 (2^-9 of
-# each term, on the two sides apart) decides. tools/k6_planted_faults.py shows
-# such faults failing this bound.
-ATTN_ULPS_BF16 = (1e-3, 1.6e-2)
+# binade. wgmma (bf16 at D = 128): 1e-3 for outputs near 0, where the rounding
+# of p to bf16 (2^-9 of each term, on the two sides apart) decides. fma (bf16
+# at D < 128): the kernel rounds p against a running max over 64-column kv
+# tiles, the plain version against one over 1,024-column blocks, so in a row
+# whose max moves after its first kv tile the two round p at different
+# scales, and an output near 0 parts by more (NVIDIA H100 80GB HBM3, D = 8:
+# 1.07 times the wgmma bound at (2, 300, 8/2) causal, ~1.1e-3 near 0). Its
+# absolute term is 2.5e-3, still under the 4e-3 that a skipped kv tile moves
+# an output of ~0.03 by at 2,048 keys. tools/k6_planted_faults.py shows a
+# dropped or stale kv tile of either kernel failing its route's bound.
+ATTN_ULPS_BF16 = {"wgmma": (1e-3, 1.6e-2), "fma": (2.5e-3, 1.6e-2)}
 # the two-layer twins' last-position logits (unit scale, |logit| up to ~5),
 # kernel against plain attention: |kernel - plain| <= atol + rtol * |plain|.
 # float32: two layers of products summed in another order. bfloat16: the two
@@ -860,45 +882,52 @@ def certify(grid: int, dev, results) -> dict:
 # ----------------------------------------------------------------------
 
 
-def run_cli(module: str, args: list[str], timeout: float, phase: str = "cli") -> dict:
-    """Run ``python -m module args`` from the checkout; its stdout is one JSON
-    object, or lines of text whose last line is one. A non-zero exit fails
-    the phase."""
+def run_cli(module: str, args: list[str], timeout: float, phase: str = "cli",
+            json_out: bool = True) -> tuple[dict | None, list[str]]:
+    """Run ``python -m module args`` from the checkout: (the JSON object its
+    stdout is, or ends with, else None; its stdout lines). A non-zero exit
+    fails the phase, and so does stdout without that object when
+    ``json_out``."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", module, *args], capture_output=True, text=True,
                           cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC), timeout=timeout)
+    command = f"python -m {module} {' '.join(args)}"
     if proc.returncode != 0:
-        raise AssertionError(f"{module} {' '.join(args)} exited {proc.returncode}:\n"
-                             f"{proc.stderr[-4000:]}")
-    printed = []
-    try:
-        result = json.loads(proc.stdout)
-    except json.JSONDecodeError:
-        *printed, last = proc.stdout.strip().splitlines()
-        result = json.loads(last)
-    say({"phase": phase, "command": f"python -m {module} {' '.join(args)}",
-         "seconds": time.perf_counter() - t0, "printed": printed, "result": result})
-    return result
+        raise AssertionError(f"{command} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    result, printed = None, lines
+    for text, rest in ((proc.stdout, []), (lines[-1] if lines else "", lines[:-1])):
+        try:
+            result, printed = json.loads(text), rest
+            break
+        except json.JSONDecodeError:
+            pass
+    if json_out and not isinstance(result, dict):
+        raise AssertionError(f"{command}: no JSON object on stdout: {lines[-3:]}")
+    say({"phase": phase, "command": command, "seconds": time.perf_counter() - t0,
+         "printed": printed[-12:], "result": result})
+    return result, lines
 
 
 def cli(grid: int, tmp: str) -> None:
     art = os.path.join(tmp, f"g{grid}.npz")
     common = ["--grid", str(grid), "--k", "20"]
-    built = run_cli("repro_torch.launch.knn_build", [*common, "--verify", "--out", art], 300)
+    built, _ = run_cli("repro_torch.launch.knn_build", [*common, "--verify", "--out", art], 300)
     require(built["verified"] is True, "knn_build --verify: tables differ from the reference")
     require(built["bngraph_certificate"]["ok"] is True,
             f"knn_build --verify: certificate failed {built['bngraph_certificate']}")
-    served = run_cli("repro_torch.launch.serve",
-                     ["--arch", "knn-index", *common, "--artifact", art, "--ops", "200000",
-                      "--update-frac", "0.05", "--inject-flush-failure", "2"], 300)
+    served, _ = run_cli("repro_torch.launch.serve",
+                        ["--arch", "knn-index", *common, "--artifact", art, "--ops", "200000",
+                         "--update-frac", "0.05", "--inject-flush-failure", "2"], 300)
     require(served["errors"] == 1 and "injected flush failure" in served["last_error"],
             f"serve: expected exactly the injected flush failure, got {served['errors']} "
             f"({served['last_error']})")
     require(served["updates"] > 0 and served["queries"] > 0, "serve: no traffic served")
     require(served["engine"]["staged_queue_depth"] == 0, "serve: updates left staged")
-    fleet = run_cli("repro_torch.launch.serve",
-                    ["--arch", "knn-index", *common, "--workload", "fleet",
-                     "--fleet-size", "200", "--ticks", "20"], 300)
+    fleet, _ = run_cli("repro_torch.launch.serve",
+                       ["--arch", "knn-index", *common, "--workload", "fleet",
+                        "--fleet-size", "200", "--ticks", "20"], 300)
     require(fleet["ticks"] == 20 and fleet["engine"]["flushes"] == 20,
             f"serve --workload fleet: {fleet['ticks']} ticks, {fleet['engine']['flushes']} flushes")
     require(fleet["sim"]["moves_total"] > 0, "serve --workload fleet: nothing moved")
@@ -1461,10 +1490,10 @@ def sharded(state: dict, tmp: str) -> dict:
             f"a kernel was not launched on the sharded path: {out['launches']}")
     out["seconds"] = time.perf_counter() - t_phase
 
-    served = run_cli("repro_torch.launch.serve",
-                     ["--arch", "knn-index", "--grid", str(CERT_GRID), "--k", "20",
-                      "--partition", "shards=4,ranges=auto", "--hot-shard", "0",
-                      "--hot-frac", "0.8", "--ops", "50000"], 300, phase="sharded_serve")
+    served, _ = run_cli("repro_torch.launch.serve",
+                        ["--arch", "knn-index", "--grid", str(CERT_GRID), "--k", "20",
+                         "--partition", "shards=4,ranges=auto", "--hot-shard", "0",
+                         "--hot-frac", "0.8", "--ops", "50000"], 300, phase="sharded_serve")
     require(served["errors"] == 0 and served["updates"] > 0 and served["queries"] > 0,
             "serve --partition: no traffic served, or a flush failed")
     require(served["partition"]["shards"] == 4 and served["engine"]["num_shards"] == 4,
@@ -1847,9 +1876,9 @@ def recsys(dev) -> dict:
     }
     del params
     torch.cuda.empty_cache()
-    ex = run_cli("repro_torch.examples.retrieval_recsys",
-                 ["--candidates", str(xdeepfm.RETRIEVAL_CANDIDATES), "--k", str(k)], 300,
-                 phase="recsys_example")
+    ex, _ = run_cli("repro_torch.examples.retrieval_recsys",
+                    ["--candidates", str(xdeepfm.RETRIEVAL_CANDIDATES), "--k", str(k)], 300,
+                    phase="recsys_example")
     require(ex["agrees"] is True and ex["path"] == "CUDA kernel",
             f"retrieval example: {ex['path']} agrees {ex['agrees']}")
     require(ex["launches"]["retrieval_topk"] == 2,
@@ -1948,14 +1977,15 @@ def kernel_sass(name: str, function: str) -> dict | None:
     return out
 
 
-def attn_held(got: torch.Tensor, want: torch.Tensor) -> dict:
-    """K6's output against its plain version under each bound of its dtype
-    (``"tol"``: ATTN_TOL; bf16 also ``"ulps"``: ATTN_ULPS_BF16): whether
-    |got - want| <= atol + rtol |want| everywhere, the count of entries
-    outside it, and the largest |got - want| / (atol + rtol |want|)."""
+def attn_held(got: torch.Tensor, want: torch.Tensor, route: str) -> dict:
+    """K6's output on ``route`` against its plain version under each bound of
+    its dtype (``"tol"``: ATTN_TOL; bf16 also ``"ulps"``: the route's
+    ATTN_ULPS_BF16): whether |got - want| <= atol + rtol |want| everywhere,
+    the count of entries outside it, and the largest
+    |got - want| / (atol + rtol |want|)."""
     bounds = {"tol": ATTN_TOL[want.dtype]}
     if want.dtype == torch.bfloat16:
-        bounds["ulps"] = ATTN_ULPS_BF16
+        bounds["ulps"] = ATTN_ULPS_BF16[route]
     g, w = got.float(), want.float()
     diff = (g - w).abs()
     out = {}
@@ -1988,11 +2018,11 @@ def check_flash_attention(dev, results) -> None:
         err = max_abs_err(got, want)
         require(got.dtype == case[0].dtype and got.shape == case[0].shape,
                 f"flash_attention {what}: bad output")
-        bounds = attn_held(got, want)
+        route = ops.flash_attention_route(case[0].dtype, case[0].shape[3])[0]
+        bounds = attn_held(got, want, route)
         for name, b in bounds.items():
             require(b["ok"], f"flash_attention differs from its plain version {what}: "
                              f"max_abs_err {err}, {b['ratio']} times the {name} bound")
-        route = ops.flash_attention_route(case[0].dtype, case[0].shape[3])[0]
         checked.append({"case": what, "route": route, "max_abs_err": err,
                         **{name: {key: b[key] for key in ("atol", "rtol", "ratio")}
                            for name, b in bounds.items()}})
@@ -2026,6 +2056,32 @@ def check_flash_attention(dev, results) -> None:
     held(qkv(1, 128, 128, 2, 1, 128, bf16), True, "(1, 128, 2/1, 128) causal bf16, 2 blocks")
     held(qkv(2, 5, 0, 2, 1, 128, bf16), False, "(2, 5/0, 2/1) bf16, no kv rows")
     held(qkv(1, 1, 300, 4, 2, 128, bf16), False, "(1, 1/300, 4/2) non-causal bf16")
+    # every other head dim K6 takes, both dtypes (the CUDA-core route): a
+    # causal grid of 5 query tiles, uneven non-causal lengths with H = Hkv, one
+    # query row; then each dtype's time at the prefill's layout beside SDPA
+    # (D = 64 bf16: granite-moe's head; D = 32 float32: train_lm's lm-15m)
+    for hd in (8, 16, 32, 64):
+        for dt in (torch.float32, bf16):
+            name = f"D={hd} {str(dt).split('.')[-1]}"
+            held(qkv(2, 300, 300, 8, 2, hd, dt), True, f"(2, 300, 8/2) causal {name}")
+            held(qkv(1, 130, 270, 4, 4, hd, dt), False, f"(1, 130/270, 4/4) non-causal {name}")
+            held(qkv(2, 1, 65, 4, 2, hd, dt), False, f"(2, 1/65, 4/2) non-causal {name}")
+    head_dims = {}
+    for hd, dt in ((64, bf16), (32, torch.float32), (64, torch.float32), (32, bf16)):
+        case = qkv(4, 2048, 2048, 16, 2, hd, dt)
+        hd_flops = 4.0 * 4 * 16 * hd * attn_pairs(2048, 2048, True)
+        hd_bytes = case[0].element_size() * (2 * case[0].numel() + 2 * case[1].numel())
+        hd_ms = cuda_ms(lambda: ops.flash_attention(*case, causal=True), reps=10)
+        head_dims[f"D={hd} {str(dt).split('.')[-1]}"] = {
+            "shape": "(4, 2048, 16/2) causal",
+            "route": ops.flash_attention_route(dt, hd)[0],
+            "max_abs_err": held(case, True, f"(4, 2048, 16/2, {hd}) causal {dt}"),
+            "ms": hd_ms, "library_ms": cuda_ms(sdpa(case, True), reps=10),
+            "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(*case, causal=True), reps=2),
+            "bound_ms": bound(hd_bytes, hd_flops, BF16_TENSOR_OPS_PER_S if dt == bf16
+                              else F32_OPS_PER_S)[0],
+            "tflops": hd_flops / hd_ms / 1e9}
+        del case
     # the prefill's own shape (qwen2.5-3b, batch 4, prompt 2048), timed
     b, s, h, hkv, d = 4, 2048, 16, 2, 128
     case = qkv(b, s, s, h, hkv, d, bf16)
@@ -2043,8 +2099,9 @@ def check_flash_attention(dev, results) -> None:
     results["flash_attention"] = {
         "shape": {"B": b, "S": s, "T": s, "H": h, "Hkv": hkv, "D": d, "causal": True,
                   "dtype": "bfloat16"},
-        "dtype_routes": {str(dt).split(".")[-1]: ops.flash_attention_route(dt, d)[0]
-                         for dt in (bf16, torch.float32)},
+        "dtype_routes": {f"{str(dt).split('.')[-1]} D={hd}": ops.flash_attention_route(dt, hd)[0]
+                         for dt in (bf16, torch.float32) for hd in ops.ATTN_HEAD_DIMS},
+        "head_dims": head_dims,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
         "library_ms": library_ms, "tflops": flops / ms / 1e9, "checked": checked,
         "ms_f32": ms_f32, "tflops_f32": flops / ms_f32 / 1e9,
@@ -2059,9 +2116,9 @@ def lm(dev) -> dict:
     from repro_torch.configs import qwen2_5_3b
 
     out: dict = {"phase": "lm"}
-    served = run_cli("repro_torch.launch.serve",
-                     ["--arch", "qwen2.5-3b", "--batch", "4", "--prompt-len", "2048",
-                      "--gen", "32"], 600, phase="lm_serve")
+    served, _ = run_cli("repro_torch.launch.serve",
+                        ["--arch", "qwen2.5-3b", "--batch", "4", "--prompt-len", "2048",
+                         "--gen", "32"], 600, phase="lm_serve")
     cfg = qwen2_5_3b.make_config()
     require(served["params"] == cfg.param_count() and served["model"] == cfg.name,
             f"serve ran {served['model']}, not the full {cfg.name}")
@@ -2157,6 +2214,205 @@ def twin(cfg, dtype, atol: float, rtol: float, dev) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase: training the side models
+# ----------------------------------------------------------------------
+
+# the full qwen2.5-3b's training steps (batch 1 x 2,048 Markov tokens)
+TRAIN_STEPS = 4
+TRAIN_SEQ = 2048
+# the two-layer float32 twin's step, K6 against the plain attention. Its
+# forward differs from the plain one as K6's outputs do (ATTN_TOL: float32
+# sums in another order, ~1e-6 relative); the backward is the same plain
+# code on those inputs. loss: rtol 1e-6; grad_norm: rtol 1e-4; each gradient
+# leaf: max |g_kernel - g_plain| <= 1e-4 x max |g_plain| of that leaf.
+TWIN_LOSS_RTOL, TWIN_GNORM_RTOL, TWIN_GRAD_TOL = 1e-6, 1e-4, 1e-4
+# the full xdeepfm's training steps at launch/train.py's batch
+RECSYS_TRAIN_STEPS = 3
+RECSYS_TRAIN_BATCH = 65536
+
+
+def lm_grads(model, params, batch, use_kernel: bool):
+    """(loss, gradient leaves) of ``tr.loss_fn`` by autograd, K6 or the plain
+    attention in its forward."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves
+
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    loss = tr.loss_fn(params, batch, model, device=batch["tokens"].device,
+                      use_kernel=use_kernel)
+    return loss.detach(), torch.autograd.grad(loss, flat)
+
+
+def train(dev, tmp: str) -> dict:
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import qwen2_5_3b, xdeepfm
+    from repro_torch.data.pipeline import MarkovLMStream, RecsysStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys as rc
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    out: dict = {"phase": "train"}
+    t_phase = time.perf_counter()
+
+    # -- the full qwen2.5-3b (36 layers, bf16), TRAIN_STEPS steps --
+    cfg = qwen2_5_3b.make_config()
+    stream = MarkovLMStream(vocab=cfg.vocab, batch=1, seq=TRAIN_SEQ)
+    t0 = time.perf_counter()
+    params = tr.init_params(cfg, seed=0, device=dev)
+    opt_state = adamw.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_fn = steps.make_lm_train(cfg, device=dev)
+    batches = [{key: torch.from_numpy(val).to(dev) for key, val in stream.batch_at(i).items()}
+               for i in range(TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses, gnorms = [], [], []
+    ops.reset_launches()  # ---- K6 counted from here ----
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    launches = ops.launches()  # ---- read right after the steps ----
+    peak = torch.cuda.max_memory_allocated()
+    require(launches["flash_attention"] == cfg.n_layers * TRAIN_STEPS,
+            f"qwen2.5-3b training: {launches['flash_attention']} K6 launches in "
+            f"{TRAIN_STEPS} steps, not {cfg.n_layers} a step")
+    require(all(np.isfinite(losses + gnorms)) and int(opt_state["count"]) == TRAIN_STEPS,
+            f"qwen2.5-3b training: loss {losses}, grad_norm {gnorms}")
+    require(abs(losses[0] - np.log(cfg.vocab)) < 1.0,
+            f"qwen2.5-3b's first loss {losses[0]} is not near ln(vocab) {np.log(cfg.vocab)}")
+    warm = statistics.median(step_s[1:])
+    out["qwen2.5-3b"] = {
+        "layers": cfg.n_layers, "dtype": str(cfg.param_dtype).split(".")[-1],
+        "params": cfg.param_count(),
+        "batch": [1, TRAIN_SEQ], "steps": TRAIN_STEPS, "init_s": init_s, "step_s": step_s,
+        "step_ms_warm": warm * 1e3, "tokens_per_s": TRAIN_SEQ / warm, "losses": losses,
+        "grad_norms": gnorms, "peak_gb": peak / 1e9, "launches": launches,
+        "k6_launches_per_step": launches["flash_attention"] / TRAIN_STEPS}
+    del params, opt_state, batches, metrics
+    torch.cuda.empty_cache()
+
+    # -- the two-layer, full-width float32 twin: K6 against plain attention --
+    model = dataclasses.replace(cfg, name="qwen2.5-3b-2l-float32", n_layers=2,
+                                param_dtype=torch.float32)
+    batch = {key: torch.from_numpy(val).to(dev) for key, val in
+             MarkovLMStream(vocab=cfg.vocab, batch=1, seq=TRAIN_SEQ, seed=1).batch_at(0).items()}
+    twin_out = {}
+    grads = {}
+    for use_kernel in (True, False):
+        params = tr.init_params(model, seed=0, device=dev)
+        paths = [path for path, _ in leaves_with_paths(params)]
+        ops.reset_launches()
+        loss, g = lm_grads(model, params, batch, use_kernel)
+        torch.cuda.synchronize()
+        n_k6 = ops.launches()["flash_attention"]
+        it = iter(g)
+        _, _, gn = adamw.update(tree_map(lambda _: next(it), params), adamw.init(params),
+                                params, adamw.AdamWConfig())
+        key = "kernel" if use_kernel else "plain"
+        twin_out[key] = {"loss": float(loss), "grad_norm": float(gn), "k6_launches": n_k6}
+        grads[key] = g
+        del params
+    require(twin_out["kernel"]["k6_launches"] == model.n_layers
+            and twin_out["plain"]["k6_launches"] == 0, f"twin step launches: {twin_out}")
+    lk, lp = twin_out["kernel"]["loss"], twin_out["plain"]["loss"]
+    nk, np_ = twin_out["kernel"]["grad_norm"], twin_out["plain"]["grad_norm"]
+    require(abs(lk - lp) <= TWIN_LOSS_RTOL * abs(lp), f"twin loss: {lk} against {lp}")
+    require(abs(nk - np_) <= TWIN_GNORM_RTOL * abs(np_), f"twin grad_norm: {nk} against {np_}")
+    worst = 0.0
+    for path, a, b in zip(paths, grads["kernel"], grads["plain"]):
+        scale = float(b.abs().max())
+        ratio = float((a - b).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, ratio)
+        require(ratio <= TWIN_GRAD_TOL, f"twin gradient {path}: max diff {ratio} of its max")
+    twin_out.update(loss_rtol=TWIN_LOSS_RTOL, grad_norm_rtol=TWIN_GNORM_RTOL,
+                    grad_tol=TWIN_GRAD_TOL, grad_leaves=len(paths),
+                    worst_grad_diff_of_max=worst)
+    out["twin_float32"] = twin_out
+    del grads, batch
+    torch.cuda.empty_cache()
+
+    # -- the full xdeepfm at launch/train.py's batch, then one checkpoint --
+    rcfg = xdeepfm.make_config()
+    rstream = RecsysStream(n_sparse=rcfg.n_sparse, bag=rcfg.bag_size, rows=rcfg.table_rows,
+                           batch=RECSYS_TRAIN_BATCH)
+    params = rc.init_params(rcfg, seed=0, device=dev)
+    opt_state = adamw.init(params)
+    rstep = steps.make_recsys_train(rcfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    r_s, r_losses = [], []
+    for i in range(RECSYS_TRAIN_STEPS):
+        batch = {key: torch.from_numpy(val).to(dev) for key, val in rstream.batch_at(i).items()}
+        t0 = time.perf_counter()
+        params, opt_state, metrics = rstep(params, opt_state, batch)
+        torch.cuda.synchronize()
+        r_s.append(time.perf_counter() - t0)
+        r_losses.append(float(metrics["loss"]))
+    require(all(np.isfinite(r_losses)) and abs(r_losses[0] - np.log(2)) < 0.1,
+            f"xdeepfm training: losses {r_losses}")
+    tree = (params, opt_state)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(tree))
+    where = os.path.join(tmp, "xdeepfm_ckpt")
+    t0 = time.perf_counter()
+    ckpt.save(where, RECSYS_TRAIN_STEPS, tree)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, step = ckpt.restore(where, tree)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    require(step == RECSYS_TRAIN_STEPS, f"restored step {step}")
+    for (path, a), b in zip(leaves_with_paths(tree), leaves(restored)):
+        require(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b),
+                f"xdeepfm checkpoint leaf {path} restored differently")
+    out["xdeepfm"] = {"batch": RECSYS_TRAIN_BATCH, "steps": RECSYS_TRAIN_STEPS, "step_s": r_s,
+                      "step_ms_warm": statistics.median(r_s[1:]) * 1e3,
+                      "rows_per_s": RECSYS_TRAIN_BATCH / statistics.median(r_s[1:]),
+                      "losses": r_losses, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "checkpoint_bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+                      "leaves": len(leaves(tree))}
+    shutil.rmtree(where)
+    del params, opt_state, tree, restored, metrics
+    torch.cuda.empty_cache()
+
+    # -- in subprocesses: launch/train.py's resume, train_lm, the kNN example twins --
+    ck_dir = os.path.join(tmp, "train_ckpt")
+    args = ["--arch", "qwen2.5-3b", "--smoke", "--ckpt-dir", ck_dir, "--ckpt-every", "3",
+            "--log-every", "2"]
+    _, first = run_cli("repro_torch.launch.train", [*args, "--steps", "6"], 300, "train_cli",
+                       json_out=False)
+    _, resumed = run_cli("repro_torch.launch.train", [*args, "--steps", "8"], 300, "train_cli",
+                         json_out=False)
+    require(any(line.startswith("final loss") for line in first),
+            f"launch.train: {first[-1:]}")
+    require("resumed from step 6" in resumed, f"launch.train --steps 8 did not resume: {resumed}")
+    shutil.rmtree(ck_dir)
+    lm15, _ = run_cli("repro_torch.examples.train_lm", [], 600, phase="train_lm")
+    require(lm15["loss"] < lm15["first_loss"] - 0.5, f"train_lm: {lm15}")
+    require(lm15["launches"]["flash_attention"] == 4 * lm15["steps"],
+            f"train_lm: {lm15['launches']['flash_attention']} K6 launches")
+    _, quick = run_cli("repro_torch.examples.quickstart", [], 600, "quickstart",
+                       json_out=False)
+    require("checks: 10 of 10 hold" in quick and "back to original: True" in quick,
+            f"quickstart: {quick[-3:]}")
+    _, service = run_cli("repro_torch.examples.knn_road_service", [], 600, "knn_road_service",
+                         json_out=False)
+    require(all(f"{name} tables equal a rebuild on its objects: True" in service
+                for name in ("engine", "fleet")), f"knn_road_service: {service[-3:]}")
+    out["train_lm"] = {key: lm15[key] for key in ("model", "steps", "first_loss", "loss",
+                                                  "seconds", "launches")}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ----------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2226,14 +2482,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_out = lm(dev)
     say(lm_out)
+    torch.cuda.empty_cache()
+    os.makedirs(tmp)
+    train_out = train(dev, tmp)
+    say(train_out)
+    shutil.rmtree(tmp)
     say({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     # which run each kernel's launch count covers: the main path runs K1-K3
     # (K2 as sweep_merge_levels in the build, one launch a sweep, and as
     # sweep_merge in the flushes' repair rounds),
-    # the certificate minplus, the recsys retrieval retrieval_topk, the LM
-    # prefill of serve.py flash_attention (counted by serve.py from 0
-    # just before its timed run). The numbers beside each count are its
+    # the certificate minplus, the recsys retrieval retrieval_topk, the full
+    # qwen2.5-3b's training steps flash_attention (counted from 0 just before
+    # them; launches_lm: serve.py's prefill). The numbers beside each count are its
     # kernel check's (minplus at 4096^3, its time at the certificate's own
     # shape is on the certify line; retrieval_topk at the retrieval cell's
     # (1, 10^6); flash_attention at the prefill's (4, 2048, 16/2, 128))
@@ -2252,12 +2513,15 @@ def main() -> int:
     # their phase, under launches_sharded)
     phases = {name: ["main_path", "sharded"]
               for name in ("topk_merge", "sweep_merge", "sweep_merge_levels", "frontier_relax")}
-    phases.update(minplus=["certify", "cli"], retrieval_topk=["recsys"], flash_attention=["lm"])
+    phases.update(minplus=["certify", "cli"], retrieval_topk=["recsys"],
+                  flash_attention=["lm", "train"])
     counted["minplus"] = ("certify", cert["launches"]["minplus"], results["minplus"])
     counted["retrieval_topk"] = ("recsys", rec["launches"]["retrieval_topk"],
                                  results["retrieval_topk"])
-    counted["flash_attention"] = ("lm", lm_out["serve"]["launches"]["flash_attention"],
-                                  results["flash_attention"])
+    counted["flash_attention"] = (
+        "train", train_out["qwen2.5-3b"]["launches"]["flash_attention"],
+        {**results["flash_attention"],
+         "launches_lm": lm_out["serve"]["launches"]["flash_attention"]})
     say({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name.removesuffix('_levels')}.cu",
@@ -2266,7 +2530,7 @@ def main() -> int:
          **({"launches_sharded": shard["launches"][name]} if "sharded" in phases[name] else {}),
          **{key: counted[name][2][key] for key in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-            + tuple(key for key in ("dtype_routes", "launches_per_call")
+            + tuple(key for key in ("dtype_routes", "launches_per_call", "launches_lm")
                     if key in counted[name][2])}}
         for name in replaces
     ]})

@@ -4,5 +4,6 @@
 #   construct.py  device-resident level-synchronous construction sweeps
 #   index.py      host KNNIndex view (Definition 4.1, O(k) query)
 #   updates.py    Algorithms 4/5 scalar host oracle
+#   baselines.py  TEN-Index-lite, the paper's baseline (host numpy)
 #   engine.py     device-resident batched QueryEngine (serving surface)
 # Public entry point: the `repro_torch.knn` facade.

@@ -23,17 +23,22 @@
 //
 // Bound on an H100: operations. 4*B*H*S*T*D flops (halved under the causal
 // mask) against the tensor cores' 989 TFLOP/s in bf16, while the bytes (q, k,
-// v read once, the output written once) take microseconds. Two routes, by
-// dtype (knn_flash_attention below):
+// v read once, the output written once) take microseconds. Head dims D in
+// {8, 16, 32, 64, 128}; two routes, by dtype and D (knn_flash_attention below):
 //
-// - bfloat16 (namespace hopper): the tensor cores. wgmma for both products,
-//   tiles brought by TMA into a three-stage ring by one loader warp, two
-//   consumer warpgroups (see there).
-// - float32 (namespace simt): Hopper's tensor cores take float32 only as TF32
-//   (a 10-bit mantissa), too coarse for the float32 contract, so float32 stays
-//   on the CUDA cores: one block of 256 threads per (b, h, 64-row query tile),
-//   64-row kv tiles staged in shared memory, float32 FMAs (4 x 4
-//   scores and 4 x D/16 outputs per thread, float4 reads of shared memory).
+// - bfloat16 at D = 128 (namespace hopper): the tensor cores. wgmma for both
+//   products, tiles brought by TMA into a three-stage ring by one loader
+//   warp, two consumer warpgroups (see there).
+// - float32 at every D, and bfloat16 at D < 128 (namespace simt): the CUDA
+//   cores. Hopper's tensor cores take float32 only as TF32 (a 10-bit
+//   mantissa), too coarse for the float32 contract. One block of 256 threads
+//   per (b, h, 64-row query tile), 64-row kv tiles staged in shared memory as
+//   float32 (bf16 widened on the way in), float32 FMAs (4 x 4 scores a
+//   thread, float4 reads of shared memory). A thread holds 4 query rows
+//   times D/16 output columns; at D < 64 that is fewer than one float4, so
+//   the PV product reads V one column a thread (at D = 8 half the threads
+//   hold no column). In bf16, p is rounded to bf16 before the PV product and
+//   the output rounded once at the store, as the plain version does.
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,8 +47,6 @@
 #include <cstdint>
 
 namespace {
-
-constexpr int D = 128;  // head dim (every model the port serves)
 
 namespace simt {
 
@@ -65,28 +68,54 @@ __device__ __forceinline__ float group16_sum(float x) {
   return x;
 }
 
-constexpr size_t SMEM_BYTES = sizeof(float) * (BQ * D + BK * (D + KPAD) + BQ * (BK + PPAD));
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// x rounded to the element type T (round to nearest even), as T and as float
+template <typename T>
+__device__ __forceinline__ T narrow(float x) {
+  if constexpr (sizeof(T) == 4) return x;
+  else return __float2bfloat16_rn(x);
+}
+template <typename T>
+__device__ __forceinline__ float rounded(float x) {
+  return widen(narrow<T>(x));
+}
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (BQ * D + BK * (D + KPAD) + BQ * (BK + PPAD));
+}
 
 // Stages rows [r0, r0 + nrows) of one head of x (row stride `stride`
 // elements) into dst (nrows x ld floats); rows at or past `limit` read 0.
-__device__ __forceinline__ void stage(float* dst, int ld, const float* x, size_t stride,
-                                      int r0, int nrows, int limit) {
+template <typename T, int D>
+__device__ __forceinline__ void stage(float* dst, int ld, const T* x, size_t stride, int r0,
+                                      int nrows, int limit) {
   for (int idx = threadIdx.x; idx < nrows * D; idx += THREADS) {
     const int r = idx / D, c = idx % D;
     const int gr = r0 + r;
-    dst[r * ld + c] = gr < limit ? x[static_cast<size_t>(gr) * stride + c] : 0.0f;
+    dst[r * ld + c] = gr < limit ? widen(x[static_cast<size_t>(gr) * stride + c]) : 0.0f;
   }
 }
 
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out, int s_len,
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out, int s_len,
                        int t_len, int h, int hkv, int causal, float scale) {
-  constexpr int CPT = D / 16;  // output columns per thread: CPT/4 float4 groups
+  static_assert(D % 8 == 0 && D <= 128, "float4 rows of Q and K");
+  // output columns a thread holds: NG groups of VEC adjacent columns,
+  // acc[i][VEC*gi + e] is column 16*VEC*gi + VEC*tx + e (at D = 8 the
+  // columns >= D of threads tx >= 8 are never read or stored)
+  constexpr int VEC = D >= 64 ? 4 : 1;
+  constexpr int NG = (D + 16 * VEC - 1) / (16 * VEC);
+  constexpr int CPT = NG * VEC;
+  constexpr int LD = D + KPAD;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                  // BQ x D
-  float* kv = qs + BQ * D;           // BK x (D + KPAD): K, then V, of one stage
-  float* ps = kv + BK * (D + KPAD);  // BQ x (BK + PPAD)
+  float* qs = smem;           // BQ x D
+  float* kv = qs + BQ * D;    // BK x LD: K, then V, of one stage
+  float* ps = kv + BK * LD;   // BQ x (BK + PPAD)
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const int q0 = blockIdx.x * BQ;
@@ -95,12 +124,12 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = head / (h / hkv);
   const size_t q_stride = static_cast<size_t>(h) * D;
   const size_t kv_stride = static_cast<size_t>(hkv) * D;
-  const float* qh = q + (static_cast<size_t>(b) * s_len * h + head) * D;
-  const float* kh = k + (static_cast<size_t>(b) * t_len * hkv + g) * D;
-  const float* vh = v + (static_cast<size_t>(b) * t_len * hkv + g) * D;
+  const T* qh = q + (static_cast<size_t>(b) * s_len * h + head) * D;
+  const T* kh = k + (static_cast<size_t>(b) * t_len * hkv + g) * D;
+  const T* vh = v + (static_cast<size_t>(b) * t_len * hkv + g) * D;
   const float neg_inf = __int_as_float(0xff800000);
 
-  stage(qs, D, qh, q_stride, q0, BQ, s_len);
+  stage<T, D>(qs, D, qh, q_stride, q0, BQ, s_len);
 
   float m[4], l[4], acc[4][CPT];
 #pragma unroll
@@ -114,7 +143,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_end = causal ? min(t_len, q0 + BQ) : t_len;
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();  // the previous stage's PV product is done with kv and ps
-    stage(kv, D + KPAD, kh, kv_stride, k0, BK, t_len);
+    stage<T, D>(kv, LD, kh, kv_stride, k0, BK, t_len);
     __syncthreads();
 
     // scores of rows 4*ty+i, columns tx + 16*j
@@ -131,7 +160,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
         qa[i] = *reinterpret_cast<const float4*>(&qs[(4 * ty + i) * D + d]);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        ka[j] = *reinterpret_cast<const float4*>(&kv[(tx + 16 * j) * (D + KPAD) + d]);
+        ka[j] = *reinterpret_cast<const float4*>(&kv[(tx + 16 * j) * LD + d]);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -158,8 +187,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = live ? expf(sc[i][j] - m_new) : 0.0f;
-        psum += p;
-        ps[(4 * ty + i) * (BK + PPAD) + tx + 16 * j] = p;
+        psum += p;  // l sums p unrounded; the PV product takes it in T
+        ps[(4 * ty + i) * (BK + PPAD) + tx + 16 * j] = rounded<T>(p);
       }
       l[i] = l[i] * corr + group16_sum(psum);
       m[i] = m_new;
@@ -167,10 +196,9 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int c = 0; c < CPT; ++c) acc[i][c] *= corr;
     }
     __syncthreads();  // scores done with K; p complete
-    stage(kv, D + KPAD, vh, kv_stride, k0, BK, t_len);
+    stage<T, D>(kv, LD, vh, kv_stride, k0, BK, t_len);
     __syncthreads();
 
-    // acc[i][4*gi + e] is output column 64*gi + 4*tx + e
 #pragma unroll 2
     for (int jj = 0; jj < BK; jj += 4) {
       float4 pa[4];
@@ -180,16 +208,21 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
 #pragma unroll
-        for (int gi = 0; gi < CPT / 4; ++gi) {
-          const float4 vb =
-              *reinterpret_cast<const float4*>(&kv[(jj + u) * (D + KPAD) + 64 * gi + 4 * tx]);
+        for (int gi = 0; gi < NG; ++gi) {
+          const int col = 16 * VEC * gi + VEC * tx;
+          const float* row = &kv[(jj + u) * LD + col];
+          float vb[VEC];
+          if constexpr (VEC == 4) {
+            const float4 x = *reinterpret_cast<const float4*>(row);
+            vb[0] = x.x, vb[1] = x.y, vb[2] = x.z, vb[3] = x.w;
+          } else {
+            vb[0] = col < D ? *row : 0.0f;
+          }
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float p = u == 0 ? pa[i].x : u == 1 ? pa[i].y : u == 2 ? pa[i].z : pa[i].w;
-            acc[i][4 * gi + 0] += p * vb.x;
-            acc[i][4 * gi + 1] += p * vb.y;
-            acc[i][4 * gi + 2] += p * vb.z;
-            acc[i][4 * gi + 3] += p * vb.w;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[i][VEC * gi + e] += p * vb[e];
           }
         }
       }
@@ -200,28 +233,45 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + 4 * ty + i;
     if (qi >= s_len) continue;
-    const float inv = 1.0f / fmaxf(l[i], 1e-30f);
-    float* o = out + (static_cast<size_t>(b) * s_len + qi) * q_stride +
-               static_cast<size_t>(head) * D;
+    const float den = fmaxf(l[i], 1e-30f);
+    T* o = out + (static_cast<size_t>(b) * s_len + qi) * q_stride + static_cast<size_t>(head) * D;
 #pragma unroll
-    for (int gi = 0; gi < CPT / 4; ++gi)
+    for (int gi = 0; gi < NG; ++gi)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[64 * gi + 4 * tx + e] = acc[i][4 * gi + e] * inv;
+      for (int e = 0; e < VEC; ++e) {
+        const int col = 16 * VEC * gi + VEC * tx + e;
+        if (col < D) o[col] = narrow<T>(acc[i][VEC * gi + e] / den);
+      }
   }
 }
 
-int launch(const void* q, const void* k, const void* v, void* out, int b, int s_len,
-           int t_len, int h, int hkv, int causal, float scale, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel;
+template <typename T, int D>
+int launch_d(const void* q, const void* k, const void* v, void* out, int b, int s_len,
+             int t_len, int h, int hkv, int causal, float scale, cudaStream_t stream) {
+  auto kernel = flash_attention_kernel<T, D>;
+  constexpr size_t SMEM_BYTES = smem_bytes<D>();  // 82 KB at D = 128, over 48 KB
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(SMEM_BYTES));  // 82 KB, over 48 KB
+                                       static_cast<int>(SMEM_BYTES));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((s_len + BQ - 1) / BQ, h, b);
   kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), s_len, t_len, h, hkv, causal, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), s_len, t_len, h, hkv, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* out, int b, int s_len, int t_len,
+           int h, int hkv, int d, int causal, float scale, cudaStream_t stream) {
+  switch (d) {
+    case 8: return launch_d<T, 8>(q, k, v, out, b, s_len, t_len, h, hkv, causal, scale, stream);
+    case 16: return launch_d<T, 16>(q, k, v, out, b, s_len, t_len, h, hkv, causal, scale, stream);
+    case 32: return launch_d<T, 32>(q, k, v, out, b, s_len, t_len, h, hkv, causal, scale, stream);
+    case 64: return launch_d<T, 64>(q, k, v, out, b, s_len, t_len, h, hkv, causal, scale, stream);
+    case 128:
+      return launch_d<T, 128>(q, k, v, out, b, s_len, t_len, h, hkv, causal, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace simt
@@ -276,6 +326,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int s_
 // ---------------------------------------------------------------------------
 namespace hopper {
 
+constexpr int D = 128;          // head dim of this route
 constexpr int BQ = 128;         // query rows per block: two consumer warpgroups of 64
 constexpr int BK = 128;         // kv rows per tile
 constexpr int STAGES = 3;       // K/V tiles in the ring
@@ -670,20 +721,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int s_
 
 }  // namespace
 
-// q, out: (b, s, h, d); k, v: (b, t, hkv, d); row-major, all float32
-// (dtype 0: the CUDA-core kernel) or all bfloat16 (dtype 1: the tensor-core
-// kernel; every pointer 16-byte aligned, as TMA asks); d is 128 and h a
-// multiple of hkv. Returns the CUDA error code of the launch (0 = launched).
+// q, out: (b, s, h, d); k, v: (b, t, hkv, d); row-major. route 0: all float32,
+// the CUDA-core kernel; route 1: all bfloat16 at d = 128, the tensor-core
+// kernel (every pointer 16-byte aligned, as TMA asks); route 2: all bfloat16,
+// the CUDA-core kernel. d is 8, 16, 32, 64 or 128 and h a multiple of hkv.
+// Returns the CUDA error code of the launch (0 = launched).
 extern "C" int knn_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                   int dtype, int b, int s_len, int t_len, int h, int hkv,
+                                   int route, int b, int s_len, int t_len, int h, int hkv,
                                    int d, int causal, float scale, void* stream) {
   if (b == 0 || s_len == 0 || h == 0) return 0;
   if (hkv <= 0 || h % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d != D) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return simt::launch(q, k, v, out, b, s_len, t_len, h, hkv, causal, scale, st);
-  if (dtype == 1)
+  if (route == 0)
+    return simt::launch<float>(q, k, v, out, b, s_len, t_len, h, hkv, d, causal, scale, st);
+  if (route == 1 && d == hopper::D)
     return hopper::launch(q, k, v, out, b, s_len, t_len, h, hkv, causal, scale, st);
+  if (route == 2)
+    return simt::launch<__nv_bfloat16>(q, k, v, out, b, s_len, t_len, h, hkv, d, causal, scale,
+                                       st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -610,26 +610,32 @@ def retrieval_topk(scores: torch.Tensor, k: int, *, use_kernel: bool = True):
 # K6 flash_attention
 # ----------------------------------------------------------------------
 
-# the kernel's head dim (every model the port serves)
-ATTN_HEAD_DIM = 128
-# K6's two routes: dtype -> (kernel, dtype code of the C entry point)
-_ATTN_ROUTES = {torch.bfloat16: ("wgmma", 1), torch.float32: ("fma", 0)}
+# the head dims K6 takes (every model configuration of the repo: 8, 16 and 32
+# in the smoke and example configs, 64 and 128 in the full ones)
+ATTN_HEAD_DIMS = (8, 16, 32, 64, 128)
+# the head dim of the tensor-core route
+ATTN_WGMMA_HEAD_DIM = 128
 
 
 def flash_attention_route(dtype: torch.dtype, head_dim: int) -> tuple[str, int]:
-    """The kernel K6 launches for this dtype, and its code in the C entry point.
+    """The kernel K6 launches for this dtype and head dim, and its route code
+    in the C entry point.
 
-    bfloat16 goes to ``"wgmma"``, the tensor cores fed by TMA. float32 goes to
+    bfloat16 at D = 128 goes to ``"wgmma"`` (code 1), the tensor cores fed by
+    TMA. float32 at every D (code 0), and bfloat16 at D < 128 (code 2), go to
     ``"fma"``, float32 FMAs on the CUDA cores: the tensor cores take float32
-    only as TF32, whose 10-bit mantissa breaks the float32 tolerance. Any other
-    dtype or a head dim other than 128 raises. Neither route gives way to the
-    other.
+    only as TF32, whose 10-bit mantissa breaks the float32 tolerance, and the
+    wgmma kernel's tiles are 128 columns wide. Any other dtype, or a head dim
+    outside ``ATTN_HEAD_DIMS``, raises. No route gives way to another.
     """
-    if dtype not in _ATTN_ROUTES:
+    if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention: dtype {dtype}, expected float32 or bfloat16")
-    if head_dim != ATTN_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {head_dim}, the kernel takes {ATTN_HEAD_DIM}")
-    return _ATTN_ROUTES[dtype]
+    if head_dim not in ATTN_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {head_dim}, the kernel takes "
+                         f"{ATTN_HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "fma", 0
+    return ("wgmma", 1) if head_dim == ATTN_WGMMA_HEAD_DIM else ("fma", 2)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -643,12 +649,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     accumulator in float32, p rounded to v's type before the PV product.
 
     CUDA kernel: ``csrc/flash_attention.cu`` (replaces ``flash_attention_pallas``),
-    one of two by dtype (``flash_attention_route``). bfloat16: one block per
-    (b, h, 128 query rows), a loader warp bringing Q and 128-row K and V tiles
-    by TMA into a three-stage ring, two warpgroups doing both products with
-    ``wgmma``. float32: one block per (b, h, 64 query rows), float32 FMAs on
-    64-row kv tiles. Both keep the running max, sum and accumulator in
-    registers; any S and T, no padding; D = 128. Bound by operations:
+    one of two by dtype and head dim (``flash_attention_route``). bfloat16 at
+    D = 128: one block per (b, h, 128 query rows), a loader warp bringing Q
+    and 128-row K and V tiles by TMA into a three-stage ring, two warpgroups
+    doing both products with ``wgmma``. float32, and bfloat16 at D < 128: one
+    block per (b, h, 64 query rows), float32 FMAs on 64-row kv tiles. Both
+    keep the running max, sum and accumulator in registers; any S and T, no
+    padding; D in ``ATTN_HEAD_DIMS``. Bound by operations:
     4*B*H*S*T*D flops (half of it under the causal mask) against the bf16
     tensor-core rate.
     """

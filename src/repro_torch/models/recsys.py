@@ -2,8 +2,8 @@
 feature embeddings, and the `retrieval_cand` scoring of one query against the
 item table with the K5 top-k kernel.
 
-Port of ``repro/models/recsys.py`` (forward and retrieval; training waits for
-the training slice). Parameters are a dict of tensors in the JAX package's
+Port of ``repro/models/recsys.py`` (forward, ``loss_fn`` and retrieval).
+Parameters are a dict of tensors in the JAX package's
 layout: ``tables`` (F, rows, D), ``lin_tables`` (F, rows), ``cin`` a list of
 (H_k, H_{k-1}, F), ``mlp`` a list of {w, b}, ``out_cin`` (sum H, 1), ``bias``.
 Embedding gathers, the CIN contractions, the MLP and the scoring product are
@@ -14,10 +14,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.common import mlp_apply, mlp_init, normal, tree_from_numpy
+from repro_torch.tree import tree_map
 
 # largest (rows, H, F, D) CIN interaction tensor built at once
 _CIN_TEMP_BYTES = 1 << 30
@@ -91,6 +93,12 @@ def params_from_numpy(tree: dict, cfg: XDeepFMConfig, device="cuda") -> dict:
     return params
 
 
+def params_to_numpy(params: dict) -> dict:
+    """The inverse of ``params_from_numpy``: the parameters as numpy arrays in
+    the JAX package's tree (the layouts are the same)."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)
+
+
 def _sparse_ids(params, batch, dev) -> torch.Tensor:
     check_on(params["tables"], dev, "parameters")
     return torch.as_tensor(batch["sparse_ids"], device=params["tables"].device)
@@ -130,6 +138,15 @@ def _cin(params, x0: torch.Tensor, cfg: XDeepFMConfig) -> torch.Tensor:
     b, f, d = x0.shape
     widest = max([f, *cfg.cin_layers])
     step = max(1, _CIN_TEMP_BYTES // (widest * f * d * x0.element_size()))
+    if torch.is_grad_enabled() and (x0.requires_grad
+                                    or any(w.requires_grad for w in params["cin"])):
+        # when autograd records, each chunk's z would be kept for the backward
+        # (20 GB a layer at launch/train.py's training batch of 65,536): the
+        # backward recomputes it instead, chunk by chunk (the same values).
+        # Inference (nothing requires grad) takes the plain loop below.
+        return torch.cat([torch.utils.checkpoint.checkpoint(
+            _cin_rows, params, x0[r0 : r0 + step], use_reentrant=False)
+            for r0 in range(0, b, step)])
     return torch.cat([_cin_rows(params, x0[r0 : r0 + step]) for r0 in range(0, b, step)])
 
 
@@ -146,6 +163,16 @@ def forward(params, batch, cfg: XDeepFMConfig, *, device="cuda") -> torch.Tensor
         + lin.sum(dim=-1)
         + params["bias"].to(emb.dtype)
     )
+
+
+def loss_fn(params, batch, cfg: XDeepFMConfig, *, device="cuda") -> torch.Tensor:
+    """Mean binary cross entropy of the logits against ``batch['labels']``
+    (B,) in {0, 1}, in float32, in the stable form max(x, 0) - x y +
+    log1p(exp(-|x|))."""
+    logit = forward(params, batch, cfg, device=device).to(torch.float32)
+    y = torch.as_tensor(batch["labels"], device=logit.device).to(torch.float32)
+    return torch.mean(torch.clamp_min(logit, 0) - logit * y
+                      + torch.log1p(torch.exp(-torch.abs(logit))))
 
 
 def retrieval_score(params, batch, cfg: XDeepFMConfig, k: int = 100, *, device="cuda",

@@ -1,10 +1,16 @@
 """Decoder-only transformer, dense FFN, GQA, QKV bias, RoPE, KV cache: the
-dense subset of ``repro/models/transformer.py`` (forward, prefill, decode).
+dense subset of ``repro/models/transformer.py`` (forward, ``loss_fn``,
+prefill, decode).
 
 Parameters are a dict of tensors in the JAX package's layout, with the layers
 as a list of per-layer dicts (the JAX package stacks them on a leading axis
-for ``lax.scan``; a Python loop runs them here). The attention of ``forward``
-and ``prefill`` is ``nn.attention``, the K6 kernel on the card; ``decode_step``
+for ``lax.scan``; a Python loop runs them here, and each layer's leaves stay
+separate tensors, so autograd accumulates each gradient in place of a
+gradient of the whole stack). ``stack_layers`` / ``unstack_layers`` convert
+to and from the stacked tree (checkpoints, comparisons with JAX). The
+attention of ``forward`` and ``prefill`` is ``nn.attention``, the K6 kernel
+on the card (differentiable: the backward is the plain attention's);
+``decode_step``
 keeps the JAX package's grouped product against the cache in plain torch. The
 cache is updated in place (the JAX package returns a new one): ``prefill``
 makes it, each ``decode_step`` writes one position of it and returns it.
@@ -20,7 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch.device import check_on, resolve_device
 from repro_torch.models import nn
-from repro_torch.models.common import normal, tensor_from_numpy
+from repro_torch.models.common import normal, tree_from_numpy
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,25 +90,45 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0, device="cuda") -> dict
     }
 
 
+def stack_layers(params: dict, device=None) -> dict:
+    """This module's parameters (or a tree shaped like them, such as the
+    optimizer's moments) in the JAX package's layout: each layer leaf stacked
+    on a leading (L,) axis, built on ``device`` (default: the leaves' own).
+    New tensors; the others are shared."""
+    layers = params["layers"]
+    stacked = {name: {key: torch.stack([lp[name][key].detach().to(device or lp[name][key].device)
+                                        for lp in layers])
+                      for key in layers[0][name]} for name in layers[0]}
+    return {**params, "layers": stacked}
+
+
+def unstack_layers(tree: dict) -> dict:
+    """The inverse of ``stack_layers``: one dict per layer, each leaf its own
+    tensor (a copy, not a view of the stack)."""
+    stacked = tree["layers"]
+    layers = [{name: {key: arr[i].clone() for key, arr in sub.items()}
+               for name, sub in stacked.items()} for i in range(len(stacked["ln1"]["g"]))]
+    return {**tree, "layers": layers}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The inverse of ``params_from_numpy``: the parameters as numpy arrays in
+    the JAX package's tree, layers stacked. bfloat16 leaves come out as
+    float32 (exactly; numpy has no bfloat16 of its own)."""
+    def to_np(t):
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+    return tree_map(to_np, stack_layers(params))
+
+
 def params_from_numpy(tree: dict, cfg: TransformerConfig, device="cuda") -> dict:
     """The JAX package's ``init_params`` tree, as numpy arrays (layers stacked
     on a leading axis), as this module's parameters on ``device``."""
-    dev = resolve_device(device)
-    stacked = tree["layers"]
-
-    def layer(i):
-        return {name: {key: tensor_from_numpy(arr[i], dev) for key, arr in sub.items()}
-                for name, sub in stacked.items()}
-
-    n = len(stacked["ln1"]["g"])
+    n = len(tree["layers"]["ln1"]["g"])
     if n != cfg.n_layers:
         raise ValueError(f"{n} layers in the tree, {cfg.name} has {cfg.n_layers}")
-    return {
-        "embed": tensor_from_numpy(tree["embed"], dev),
-        "layers": [layer(i) for i in range(n)],
-        "ln_f": {"g": tensor_from_numpy(tree["ln_f"]["g"], dev)},
-        "unembed": tensor_from_numpy(tree["unembed"], dev),
-    }
+    return unstack_layers(tree_from_numpy(tree, resolve_device(device)))
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +178,15 @@ def forward(params, tokens, cfg: TransformerConfig, *, device="cuda",
     for lp in params["layers"]:
         x, _, _ = _layer_fwd(lp, x, cfg, pos, use_kernel)
     return _logits(params, x)
+
+
+def loss_fn(params, batch, cfg: TransformerConfig, *, device="cuda",
+            use_kernel: bool = True) -> torch.Tensor:
+    """Token-mean cross entropy of ``forward(batch['tokens'])`` against
+    ``batch['labels']`` (both (B, S) integer)."""
+    logits = forward(params, batch["tokens"], cfg, device=device, use_kernel=use_kernel)
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    return nn.cross_entropy(logits, labels)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int, *, device="cuda") -> dict:

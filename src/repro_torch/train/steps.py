@@ -1,0 +1,53 @@
+"""Training steps of the side models on one device: the port of
+``make_lm_train`` and ``make_recsys_train`` (``repro/train/steps.py``).
+
+Each returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+{"loss", "grad_norm"})``: the family's ``loss_fn`` and its gradient by
+autograd (the JAX package's ``value_and_grad``), then ``adamw.update``. The
+parameters and moments are updated in place (``adamw.update``) and returned;
+``loss`` and ``grad_norm`` are float32 scalar tensors on the parameters'
+device. The JAX builders also return sharding trees; those only place arrays
+on a mesh and have no counterpart on one card.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.models import recsys as rec
+from repro_torch.models import transformer as tr
+from repro_torch.optim import adamw
+from repro_torch.tree import leaves, tree_map
+
+
+def _train_step(loss_of: Callable, opt_cfg: adamw.AdamWConfig) -> Callable:
+    """The train step of ``loss_of(params, batch)``."""
+
+    def train_step(params, opt_state, batch):
+        flat = leaves(params)
+        for p in flat:
+            p.requires_grad_(True)
+        loss = loss_of(params, batch)
+        grads = iter(torch.autograd.grad(loss, flat))
+        grad_tree = tree_map(lambda _: next(grads), params)  # leaves order
+        params, opt_state, gnorm = adamw.update(grad_tree, opt_state, params, opt_cfg)
+        return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return train_step
+
+
+def make_lm_train(cfg: tr.TransformerConfig, opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+                  *, device="cuda", use_kernel: bool = True) -> Callable:
+    """The LM train step: token-mean cross entropy of ``tr.forward`` (K6 in its
+    attention on the card) against ``batch['labels']``."""
+    return _train_step(lambda params, batch: tr.loss_fn(params, batch, cfg, device=device,
+                                                        use_kernel=use_kernel), opt_cfg)
+
+
+def make_recsys_train(cfg: rec.XDeepFMConfig,
+                      opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(), *,
+                      device="cuda") -> Callable:
+    """The xDeepFM train step: mean binary cross entropy of ``rec.forward``."""
+    return _train_step(lambda params, batch: rec.loss_fn(params, batch, cfg, device=device),
+                       opt_cfg)

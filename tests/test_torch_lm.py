@@ -139,16 +139,56 @@ def test_flash_attention_prefill_heads_uneven_match_jax(s, t, causal, dtype):
                                rtol=tol, atol=tol)
 
 
+# the shapes of the JAX package's test_flash_attention_sweep (its blocks
+# block_q, block_k for the Pallas run), and (2, 48, 48, 4/2) causal
+HEAD_DIM_SHAPES = [
+    ((2, 32, 32, 4, 2, True), (8, 16)),
+    ((1, 64, 64, 4, 4, False), (16, 16)),
+    ((2, 16, 16, 8, 2, True), (16, 8)),
+    ((1, 48, 48, 2, 1, True), (16, 24)),
+    ((2, 48, 48, 4, 2, True), (16, 16)),
+]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("d", ops.ATTN_HEAD_DIMS)
+@pytest.mark.parametrize("shape,blocks", HEAD_DIM_SHAPES,
+                         ids=[f"{b}x{s}x{t}-{h}/{hkv}-{'causal' if c else 'full'}"
+                              for (b, s, t, h, hkv, c), _ in HEAD_DIM_SHAPES])
+def test_flash_attention_every_head_dim_matches_jax(shape, blocks, d, dtype):
+    """Every head dim K6 takes (``ATTN_HEAD_DIMS``), in both dtypes, at the
+    shapes of the JAX package's flash-attention sweep, against the JAX oracle
+    and the Pallas kernel in interpret mode at the sweep's blocks; float32
+    2e-5, bfloat16 3e-2 as above."""
+    b, s, t, h, hkv, causal = shape
+    q, k, v = _qkv(b, s, t, h, hkv, d, s * t + d)
+    tdt = torch.float32 if dtype is np.float32 else torch.bfloat16
+    got = ops.flash_attention(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)), causal=causal)
+    assert got.dtype == tdt and tuple(got.shape) == (b, s, h, d)
+    jq, jk, jv = (jnp.asarray(x, dtype) for x in (q, k, v))
+    tol = PREFILL_TOL[dtype]
+    for want in (jref.flash_attention_ref(jq, jk, jv, causal=causal),
+                 jops.flash_attention(jq, jk, jv, causal=causal, block_q=blocks[0],
+                                      block_k=blocks[1])):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 128, ("wgmma", 1)),
     (torch.float32, 128, ("fma", 0)),
     (torch.float16, 128, TypeError),
     (torch.float64, 128, TypeError),
-    (torch.bfloat16, 64, ValueError),
+    (torch.bfloat16, 64, ("fma", 2)),
     (torch.float32, 256, ValueError),
+    *[(torch.float32, d, ("fma", 0)) for d in (8, 16, 32, 64)],
+    *[(torch.bfloat16, d, ("fma", 2)) for d in (8, 16, 32)],
+    *[(dt, d, ValueError) for dt in (torch.float32, torch.bfloat16) for d in (4, 24, 96, 0)],
+    (torch.float16, 64, TypeError),
 ])
 def test_flash_attention_route(dtype, d, route):
-    """bf16 goes to the tensor-core kernel, float32 to the CUDA-core one; any
+    """bf16 at D = 128 goes to the tensor-core kernel; float32 at every head
+    dim of ``ATTN_HEAD_DIMS``, and bf16 below 128, to the CUDA-core one; any
     other dtype or head dim raises rather than falling back."""
     if isinstance(route, tuple):
         assert ops.flash_attention_route(dtype, d) == route
@@ -173,32 +213,37 @@ def _load(rel, name):
 
 
 def test_chip_smoke_attention_bounds():
-    """chip_smoke's K6 check: an output one bf16 ulp off its plain version
-    passes both bf16 bounds; one moved as by a skipped kv tile (0.004 on
-    outputs of ~0.03) passes ATTN_TOL and fails the two-ulp bound; float32
-    has ATTN_TOL alone."""
+    """chip_smoke's K6 check, on each bf16 route: an output one bf16 ulp off
+    its plain version passes both bf16 bounds; one moved as by a skipped kv
+    tile (0.004 on outputs of ~0.03) passes ATTN_TOL and fails the route's
+    per-element bound; float32 has ATTN_TOL alone."""
     cs = _load("chip_smoke.py", "chip_smoke")
     gen = torch.Generator().manual_seed(0)
     want = (0.03 * torch.randn(64, 128, generator=gen)).to(torch.bfloat16)
     one_ulp = (want.view(torch.int16) + 1).view(torch.bfloat16)
-    held = cs.attn_held(one_ulp, want)
-    assert held["tol"]["ok"] and held["ulps"]["ok"] and held["ulps"]["ratio"] <= 0.5
-    held = cs.attn_held((want.float() + 0.004).to(torch.bfloat16), want)
-    assert held["tol"]["ok"] and not held["ulps"]["ok"]
-    assert held["ulps"]["outside"] > 0 and held["ulps"]["ratio"] > 1
-    assert set(cs.attn_held(want.float(), want.float())) == {"tol"}
+    assert set(cs.ATTN_ULPS_BF16) == {"wgmma", "fma"}
+    for route in cs.ATTN_ULPS_BF16:
+        held = cs.attn_held(one_ulp, want, route)
+        assert held["tol"]["ok"] and held["ulps"]["ok"] and held["ulps"]["ratio"] <= 0.5
+        held = cs.attn_held((want.float() + 0.004).to(torch.bfloat16), want, route)
+        assert held["tol"]["ok"] and not held["ulps"]["ok"], route
+        assert held["ulps"]["outside"] > 0 and held["ulps"]["ratio"] > 1
+        assert set(cs.attn_held(want.float(), want.float(), route)) == {"tol"}
 
 
-@pytest.mark.parametrize("fault", ["intact", "drop_tile", "stale_stage"])
+@pytest.mark.parametrize("fault", ["intact", "drop_tile", "stale_stage", "drop_tile_fma",
+                                   "stale_stage_fma"])
 def test_k6_planted_faults_apply_to_the_kernel(fault, tmp_path):
     """Each planted fault of tools/k6_planted_faults.py finds its text in the
-    bf16 kernel once, and edits only the copy."""
+    kernel source once, and edits only the copy."""
     pf = _load(os.path.join("tools", "k6_planted_faults.py"), "k6_planted_faults")
+    assert set(pf.FAULTS) == {"intact", "drop_tile", "stale_stage", "drop_tile_fma",
+                              "stale_stage_fma"}
     kernel = os.path.join(REPO, pf.KERNEL)
     os.makedirs(os.path.dirname(tmp_path / pf.KERNEL))
     original = open(kernel).read()
     (tmp_path / pf.KERNEL).write_text(original)
-    pf.plant(str(tmp_path), pf.FAULTS[fault])
+    pf.plant(str(tmp_path), pf.FAULTS[fault][1])
     planted = (tmp_path / pf.KERNEL).read_text()
     assert (planted == original) == (fault == "intact")
     assert planted.count("planted fault") == (0 if fault == "intact" else 1)

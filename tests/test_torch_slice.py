@@ -122,6 +122,11 @@ def test_importing_the_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.configs.xdeepfm, repro_torch.configs.qwen2_5_3b\n"
         "import repro_torch.configs.registry, repro_torch.examples.retrieval_recsys\n"
         "import repro_torch.analysis.sanitize, repro_torch.analysis.replint\n"
+        "import repro_torch.core.baselines, repro_torch.tree, repro_torch.optim.adamw\n"
+        "import repro_torch.checkpoint.manager, repro_torch.distributed.straggler\n"
+        "import repro_torch.train.steps, repro_torch.launch.train\n"
+        "import repro_torch.examples.quickstart, repro_torch.examples.knn_road_service\n"
+        "import repro_torch.examples.train_lm\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.') or m == 'triton']\n"
         "print(bad)\n"

@@ -1,27 +1,35 @@
-"""Shows that chip_smoke.py's checks of K6's bf16 route catch a broken kernel.
+"""Shows that chip_smoke.py's checks of K6's bf16 routes catch a broken kernel.
 
 For the kernel as it is and for each planted fault, copies ``src/`` and
 ``chip_smoke.py`` into a work directory, edits the copy's
 ``csrc/flash_attention.cu`` there (the checkout's own sources are never
-touched), and runs in a process of its own, which builds the copy's kernels:
+touched), and runs in a process of its own, which builds the copy's kernels
+and measures, on the faulted route (both routes for the intact kernel):
 
-- K6 at (4, 2048, 16/2, 128) and (1, 32768, 16/2, 128), causal, bf16, against
-  its plain version under chip_smoke's bounds (``attn_held``: ATTN_TOL, and
-  the two-ulp ATTN_ULPS_BF16); a ratio over 1 fails a bound;
-- the two-layer bf16 twin's prefill logits with K6 against those with the
-  plain attention, beside chip_smoke's LOGIT_TOL.
+- wgmma (bf16 at D = 128): K6 at (4, 2048, 16/2, 128) and (1, 32768,
+  16/2, 128), causal, and the two-layer bf16 twin's prefill logits with K6
+  against those with the plain attention, beside chip_smoke's LOGIT_TOL;
+- fma (bf16 at D < 128): K6 at (4, 2048, 16/2, D) for D = 8, 16, 32, 64 and
+  at (2, 300, 8/2, 8), causal;
 
-Each fault touches only the heaviest query tile of each (b, h), its last 128
-rows, at the middle one of its kv tiles, so that 128 of those rows' ~2,000
-keys are wrong at 2,048 and 128 of ~32,700 at 32,768:
+each against its plain version under chip_smoke's bounds (``attn_held``:
+ATTN_TOL, and the route's ATTN_ULPS_BF16); a ratio over 1 fails a bound.
 
-- ``drop_tile``: the tile's scores are set to -inf, as if it were skipped;
-- ``stale_stage``: its K and V are read from the ring's previous stage (the
-  tile before it, or the one the loader is bringing in its place).
+Each fault touches only the heaviest query tile of each (b, h) (the last 128
+rows on the wgmma route, 64 on the fma route), at the middle one of its kv
+tiles, so that a tile of those rows' ~2,000 keys is wrong at 2,048 and one
+of ~32,700 at 32,768:
+
+- ``drop_tile`` / ``drop_tile_fma``: the tile's scores are set to -inf, as
+  if it were skipped;
+- ``stale_stage``: its K and V are read from the wgmma ring's previous stage
+  (the tile before it, or the one the loader is bringing in its place);
+- ``stale_stage_fma``: its K is not staged, so its scores are taken against
+  what the stage still holds, the previous tile's V.
 
 Needs one CUDA card and ``nvcc``. Prints the card's name and power limit, then
 one JSON line per variant. Exits 1 if the kernel as it is fails a bound, or if
-a fault passes every bound at either length.
+a fault passes every bound at any of its route's shapes.
 
     python3 tools/k6_planted_faults.py [--workdir DIR]
 """
@@ -37,27 +45,44 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL = os.path.join("src", "repro_torch", "kernels", "csrc", "flash_attention.cu")
-FAULT = "blockIdx.y == 0 && it == n_kv / 2"  # the heaviest query tile's middle kv tile
+# the heaviest query tile's middle kv tile, on each route
+FAULT = "blockIdx.y == 0 && it == n_kv / 2"
+FAULT_FMA = "blockIdx.x == gridDim.x - 1 && k0 == (kv_end + BK - 1) / BK / 2 * BK"
 
-# (text in the kernel, its replacement): each text must occur exactly once
+# variant: (the route it breaks, [(text in the kernel, its replacement)]);
+# each text must occur exactly once
 FAULTS = {
-    "intact": [],
-    "drop_tile": [(
+    "intact": (None, []),
+    "drop_tile": ("wgmma", [(
         "    // a mask only where the tile holds T",
         f"    if ({FAULT})  // planted fault\n"
         "      for (int x = 0; x < 64; ++x) s[x] = __int_as_float(0xff800000);\n"
         "    // a mask only where the tile holds T",
-    )],
-    "stale_stage": [
+    )]),
+    "stale_stage": ("wgmma", [
         ("    const int k0 = it * BK;\n",
          "    const int k0 = it * BK;\n"
          f"    const int fst = {FAULT} ? (st + STAGES - 1) % STAGES : st;  // planted fault\n"),
         ("sw128(sm.k(st) + off, 16, 1024)", "sw128(sm.k(fst) + off, 16, 1024)"),
         ("sw128(sm.v(st) + kk * 2048, BOX_BYTES, 1024)",
          "sw128(sm.v(fst) + kk * 2048, BOX_BYTES, 1024)"),
-    ],
+    ]),
+    "drop_tile_fma": ("fma", [(
+        "        sc[i][j] = keep ? sc[i][j] * scale : neg_inf;\n",
+        f"        sc[i][j] = keep && !({FAULT_FMA}) ? sc[i][j] * scale : neg_inf;"
+        "  // planted fault\n",
+    )]),
+    "stale_stage_fma": ("fma", [(
+        "    stage<T, D>(kv, LD, kh, kv_stride, k0, BK, t_len);\n",
+        f"    if (!({FAULT_FMA}))  // planted fault: the stage keeps the last tile's V\n"
+        "      stage<T, D>(kv, LD, kh, kv_stride, k0, BK, t_len);\n",
+    )]),
 }
-SHAPES = ((4, 2048), (1, 32768))  # (batch, length); 16 query heads, 2 kv heads, D = 128
+# (batch, length, heads, kv heads, head dim) of each route, causal, bf16
+SHAPES = {
+    "wgmma": ((4, 2048, 16, 2, 128), (1, 32768, 16, 2, 128)),
+    "fma": (*((4, 2048, 16, 2, d) for d in (8, 16, 32, 64)), (2, 300, 8, 2, 8)),
+}
 
 
 def plant(copy: str, edits: list[tuple[str, str]]) -> None:
@@ -73,8 +98,9 @@ def plant(copy: str, edits: list[tuple[str, str]]) -> None:
         f.write(text)
 
 
-def measure() -> dict:
-    """In a copy: K6 at SHAPES and the bf16 twin's prefill logits."""
+def measure(routes: list[str]) -> dict:
+    """In a copy: K6 at the routes' SHAPES, and the bf16 twin's prefill logits
+    where the wgmma route is measured."""
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
     import torch
 
@@ -87,34 +113,42 @@ def measure() -> dict:
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(17)
     attention = []
-    for b, s in SHAPES:
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(bf16)
-                   for shape in ((b, s, 16, 128), (b, s, 2, 128), (b, s, 2, 128)))
-        got = ops.flash_attention(q, k, v, causal=True)
-        want = ref.flash_attention_ref(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        attention.append({"B": b, "S": s, "max_abs_err": cs.max_abs_err(got, want),
-                          "max_abs_err_last_tile": cs.max_abs_err(got[:, -128:], want[:, -128:]),
-                          **cs.attn_held(got, want)})
-        del q, k, v, got, want
-        torch.cuda.empty_cache()
-    model, params, prompts = cs.twin_model(qwen2_5_3b.make_config(), bf16, dev)
-    l_k, _ = tr.prefill(params, prompts, model, 2048 + 16, device=dev)
-    l_p, _ = tr.prefill(params, prompts, model, 2048 + 16, device=dev, use_kernel=False)
-    atol, rtol = cs.LOGIT_TOL[bf16]
-    twin = {"logits_max_abs_err": cs.max_abs_err(l_k, l_p), "atol": atol, "rtol": rtol,
+    for route in routes:
+        for b, s, h, hkv, d in SHAPES[route]:
+            assert ops.flash_attention_route(bf16, d)[0] == route
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(bf16)
+                       for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+            got = ops.flash_attention(q, k, v, causal=True)
+            want = ref.flash_attention_ref(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            rows = 128 if route == "wgmma" else 64
+            attention.append({"route": route, "B": b, "S": s, "H": h, "Hkv": hkv, "D": d,
+                              "max_abs_err": cs.max_abs_err(got, want),
+                              "max_abs_err_last_tile": cs.max_abs_err(got[:, -rows:],
+                                                                      want[:, -rows:]),
+                              **cs.attn_held(got, want, route)})
+            del q, k, v, got, want
+            torch.cuda.empty_cache()
+    reading = {"attention": attention}
+    if "wgmma" in routes:
+        model, params, prompts = cs.twin_model(qwen2_5_3b.make_config(), bf16, dev)
+        l_k, _ = tr.prefill(params, prompts, model, 2048 + 16, device=dev)
+        l_p, _ = tr.prefill(params, prompts, model, 2048 + 16, device=dev, use_kernel=False)
+        atol, rtol = cs.LOGIT_TOL[bf16]
+        reading["twin_bfloat16"] = {
+            "logits_max_abs_err": cs.max_abs_err(l_k, l_p), "atol": atol, "rtol": rtol,
             "ok": bool(((l_k.float() - l_p.float()).abs()
                         <= atol + rtol * l_p.float().abs()).all())}
-    return {"attention": attention, "twin_bfloat16": twin}
+    return reading
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workdir", help="where the copies go (default: a new temporary directory)")
-    ap.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--measure", nargs="+", choices=sorted(SHAPES), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.measure:
-        print(json.dumps(measure()))
+        print(json.dumps(measure(args.measure)))
         return 0
 
     import torch
@@ -127,7 +161,7 @@ def main() -> int:
     work = args.workdir or tempfile.mkdtemp(prefix="k6_faults_")
     bad = []
     try:
-        for name, edits in FAULTS.items():
+        for name, (route, edits) in FAULTS.items():
             copy = os.path.join(work, name)
             shutil.rmtree(copy, ignore_errors=True)
             shutil.copytree(os.path.join(ROOT, "src"), os.path.join(copy, "src"),
@@ -137,8 +171,9 @@ def main() -> int:
                 shutil.copy(os.path.join(ROOT, rel), os.path.join(copy, rel))
             plant(copy, edits)
             script = os.path.join(copy, "tools", "k6_planted_faults.py")
-            run = subprocess.run([sys.executable, script, "--measure"], capture_output=True,
-                                 text=True, timeout=600)
+            routes = sorted(SHAPES) if route is None else [route]
+            run = subprocess.run([sys.executable, script, "--measure", *routes],
+                                 capture_output=True, text=True, timeout=600)
             if run.returncode != 0:
                 print(run.stderr[-4000:], file=sys.stderr)
                 print(json.dumps({"variant": name, "returncode": run.returncode}), flush=True)
