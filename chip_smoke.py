@@ -115,7 +115,11 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    two-block grid, no kv rows and one query row, and at every other head dim
    (8, 16, 32, 64) in both dtypes; times both routes and, beside them,
    ``scaled_dot_product_attention(enable_gqa=True)`` (bf16 at 2,048 and
-   32,768; D = 64 bf16 and D = 32 float32 at (4, 2048, 16/2)); reads the bf16
+   32,768; D = 64 bf16 and D = 32 float32 at (4, 2048, 16/2)); then at the
+   newer LMs' prefill head layouts in bf16, each timed beside SDPA and its
+   plain version: (4, 2048, 16/8, 64) (granite-moe, FMA route) and (4, 2048,
+   40/8 | 48/8 | 64/8, 128) (llama4-scout, internlm2-20b, qwen1.5-110b:
+   ``wgmma`` at GQA groups of 5, 6 and 8); reads the bf16
    kernel's registers and its HGMMA / UTMALDG count with ``cuobjdump``;
 13. ``lm``: ``serve --arch qwen2.5-3b --batch 4 --prompt-len 2048 --gen 32``
    in a subprocess (full width, full depth, bf16: 36 K6 launches in its
@@ -124,20 +128,39 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    runs once with K6 and once with the plain attention: logits within the
    stated ``LOGIT_TOL``, and the same greedy tokens over 16 decode steps
    (a row may part only at a near-tie);
-14. ``train``: the full qwen2.5-3b (36 layers, bf16) takes ``TRAIN_STEPS``
+14. ``lm_archs``: ``serve --arch granite-moe-1b-a400m`` and ``serve --arch
+   internlm2-20b`` (batch 4, prompt 2048, 32 tokens, full width and depth,
+   bf16) in subprocesses, their parameters ``param_count()`` and one K6
+   launch a layer in the prefill (24 and 48); granite's prefill once more in
+   process with CUDA events around each K6 call and each MoE FFN (their
+   share of the prefill); llama4-scout-17b-a16e and qwen1.5-110b, which do
+   not fit the card whole, at full width and ``REDUCED_DEPTH`` (8 of 48 and
+   12 of 80 layers) through ``serve.generate``; granite's two-layer twins
+   (float32, bf16) as ``lm``'s; and one full-width granite MoE layer over
+   8,192 tokens on the card against the CPU (routing equal but at near-ties,
+   ``ROUTE_GAP``; the card's routing through dispatch, experts and combine on
+   both sides within ``MOE_TOL``; bit-equal repeats; clean under the sync
+   guard);
+15. ``train``: the full qwen2.5-3b (36 layers, bf16) takes ``TRAIN_STEPS``
    ``make_lm_train`` steps at batch 1 x 2,048 ``MarkovLMStream`` tokens
    (AdamW, float32 moments; K6 counted from 0 around the steps: one launch a
    layer a step; step time, tokens/s, peak memory); a two-layer full-width
    float32 twin takes one step with K6 and one with the plain attention
    (loss, grad_norm and every gradient leaf within the stated ``TWIN_*``
-   tolerances); the full xdeepfm takes ``RECSYS_TRAIN_STEPS`` steps at the
+   tolerances); the full granite-moe-1b-a400m (24 layers, bf16) takes
+   ``TRAIN_STEPS`` steps likewise (24 K6 launches a step), then one
+   checkpoint of its (params, opt_state) (~13.9 GB, bare expert leaves, a
+   float32 router) is saved by ``launch/train.py``'s own stacking and
+   restored row by row, timed, every leaf equal; the full xdeepfm takes
+   ``RECSYS_TRAIN_STEPS`` steps at the
    training batch of ``launch/train.py`` (65,536), then one checkpoint of (params, opt_state) is
    saved and restored, timed, every leaf equal; then in subprocesses
    ``launch.train --smoke`` for 6 steps and again for 8 (``resumed from step
-   6``), the ``train_lm`` example (lm-15m, 150 steps, K6 at D = 32, the loss
+   6``), with ``--arch qwen2.5-3b`` and ``--arch granite-moe-1b-a400m``, the
+   ``train_lm`` example (lm-15m, 150 steps, K6 at D = 32, the loss
    down by at least 0.5) and the two kNN example twins (``quickstart``,
    ``knn_road_service``) at their default sizes;
-15. prints one ``{"kernels": [...]}`` line (each entry says which phase its
+16. prints one ``{"kernels": [...]}`` line (each entry says which phase its
    launch count covers) and, last, ``{"ok": true, "device": {...}}``.
 
 Bounds: ``bound_ms`` is the larger of (bytes the function must move: every
@@ -150,6 +173,7 @@ slots, unmasked query-key pairs).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -168,8 +192,7 @@ BF16_TENSOR_OPS_PER_S = 989e12
 # FP32 lanes of an H100 SXM: 132 SMs x 128
 SM_LANES = 132 * 128
 # K6 against its plain version: |kernel - plain| <= atol + rtol * |plain|.
-# float32: the two sum p*v and p in another order (tiles of 64 against blocks
-# of 1024). bfloat16: the output is rounded to bfloat16 on each side, one ulp
+# float32: the two sum p*v and p in another order. bfloat16: the output is rounded to bfloat16 on each side, one ulp
 # of which is 2^-8 relative, and p is rounded before the PV product.
 ATTN_TOL = {torch.float32: (5e-6, 5e-6), torch.bfloat16: (2e-2, 2e-2)}
 # Each bf16 route is held to a per-element bound of its own as well. The
@@ -179,8 +202,9 @@ ATTN_TOL = {torch.float32: (5e-6, 5e-6), torch.bfloat16: (2e-2, 2e-2)}
 # mass) would pass it. 1.6e-2 |plain| is two ulps wherever |plain| lies in its
 # binade. wgmma (bf16 at D = 128): 1e-3 for outputs near 0, where the rounding
 # of p to bf16 (2^-9 of each term, on the two sides apart) decides. fma (bf16
-# at D < 128): the kernel rounds p against a running max over 64-column kv
-# tiles, the plain version against one over 1,024-column blocks, so in a row
+# at D < 128; measured before ATTN_KV_TILE below): the kernel rounds p against
+# a running max over 64-column kv tiles, the plain version against one over
+# 1,024-column blocks, so in a row
 # whose max moves after its first kv tile the two round p at different
 # scales, and an output near 0 parts by more (NVIDIA H100 80GB HBM3, D = 8:
 # 1.07 times the wgmma bound at (2, 300, 8/2) causal, ~1.1e-3 near 0). Its
@@ -188,6 +212,15 @@ ATTN_TOL = {torch.float32: (5e-6, 5e-6), torch.bfloat16: (2e-2, 2e-2)}
 # an output of ~0.03 by at 2,048 keys. tools/k6_planted_faults.py shows a
 # dropped or stale kv tile of either kernel failing its route's bound.
 ATTN_ULPS_BF16 = {"wgmma": (1e-3, 1.6e-2), "fma": (2.5e-3, 1.6e-2)}
+# the plain version K6 is held to computes with the route's own kv tile
+# (``ref.flash_attention_ref(kv_block=)``), so that in bf16 both round each
+# p against the same running max: 128 on wgmma, 64 on the FMA route. Against
+# the plain version's default 1,024-row blocks the two round p at different
+# scales, and with more outputs that rounding alone passed the per-element
+# bound (NVIDIA H100 80GB HBM3: 1.98 times the wgmma bound at (4, 2048, 64/8,
+# 128) causal, 6 of 67 million outputs) while K6 stayed as close to a float64
+# attention as the plain version (mean |error| 1.144e-4 against 1.158e-4).
+ATTN_KV_TILE = {"wgmma": 128, "fma": 64}
 # the two-layer twins' last-position logits (unit scale, |logit| up to ~5),
 # kernel against plain attention: |kernel - plain| <= atol + rtol * |plain|.
 # float32: two layers of products summed in another order. bfloat16: the two
@@ -204,6 +237,39 @@ LOGIT_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (0.125, 0.0)}
 # atol + rtol * |top|. For bfloat16 it scales with the top logit, a few of
 # its ulps, and not the absolute 0.125 of LOGIT_TOL.
 TIE_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (3e-2, 3e-2)}
+# (H, Hkv, D) of the newer LMs, whose prefill runs K6 there
+HEAD_LAYOUTS = {"granite-moe-1b-a400m": (16, 8, 64), "llama4-scout-17b-a16e": (40, 8, 128),
+                "internlm2-20b": (48, 8, 128), "qwen1.5-110b": (64, 8, 128)}
+# llama4-scout (1.02e11 parameters, 204 GB in bf16) and qwen1.5-110b (1.11e11,
+# 222 GB) do not fit one 80 GB card whole: they run at full width with their
+# depth cut to ~37-38 GB of weights, room left for the prefill's activations.
+# Their layers are all alike, so the cut keeps the layer pattern whole.
+REDUCED_DEPTH = {"llama4-scout-17b-a16e": 8, "qwen1.5-110b": 12}
+# MoE on the card against the CPU: one full-width granite layer over
+# MOE_TOKENS float32 tokens. The router's logits are 1,024-term float32 sums,
+# which cuBLAS and the CPU's BLAS add in other orders (parting by ~1e-6 of a
+# logit, less in a probability), so a token may pick other experts than on
+# the CPU only where its k-th and (k+1)-th probabilities lie within
+# ROUTE_GAP. Given the card's routing on both sides, dispatch, experts and
+# combine agree within |card - cpu| <= atol + rtol |cpu| (MOE_TOL): the
+# experts' 1,024- and 512-term float32 sums in other orders, ~1e-6 of O(1)
+# outputs.
+MOE_TOKENS = 8192
+ROUTE_GAP = 1e-5
+MOE_TOL = (1e-5, 1e-5)
+# A MoE twin (granite) pins its routing: each call of the kernel run routes as
+# the plain run's same call did, so its logits part from the plain run's only
+# by what the attention changes, as in a dense twin. The tokens whose own
+# routing would choose other experts, and the widest k-th to (k+1)-th
+# probability gap among them, are reported. In float32 (the attentions part
+# by ~1e-6 relative) they must lie within ROUTE_GAP. In bfloat16 the
+# attentions part by an ulp here and there, the router's inputs (unit RMS)
+# by ~2^-8 of an element in many of their 1,024 elements, and its
+# probabilities by up to ~1e-3 (a token was routed apart at a gap of 1.04e-3
+# on an NVIDIA H100 80GB HBM3), as large as the gaps themselves: no gap there
+# says the routing is sound, so none is required (None); the float32 layer
+# of ``moe_on_card`` holds that.
+TWIN_ROUTE_GAP = {torch.float32: ROUTE_GAP, torch.bfloat16: None}
 
 # Road-network side of the main path. 512 (n = 262,144, the size of the New
 # York network the paper starts from) is the target, but `build_bngraph` is
@@ -1998,6 +2064,15 @@ def attn_held(got: torch.Tensor, want: torch.Tensor, route: str) -> dict:
     return out
 
 
+def attn_plain(q, k, v, *, causal: bool) -> torch.Tensor:
+    """K6's plain version at the kv tile of the route K6 takes for these
+    inputs (ATTN_KV_TILE)."""
+    from repro_torch.kernels import ops, ref
+
+    route = ops.flash_attention_route(q.dtype, q.shape[3])[0]
+    return ref.flash_attention_ref(q, k, v, causal=causal, kv_block=ATTN_KV_TILE[route])
+
+
 def check_flash_attention(dev, results) -> None:
     import torch.nn.functional as F
 
@@ -2013,7 +2088,7 @@ def check_flash_attention(dev, results) -> None:
 
     def held(case, causal, what):
         got = ops.flash_attention(*case, causal=causal)
-        want = ref.flash_attention_ref(*case, causal=causal)
+        want = attn_plain(*case, causal=causal)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         require(got.dtype == case[0].dtype and got.shape == case[0].shape,
@@ -2092,6 +2167,24 @@ def check_flash_attention(dev, results) -> None:
     flops = 4.0 * b * h * d * attn_pairs(s, s, True)
     nbytes = 2 * (2 * b * s * h * d + 2 * b * s * hkv * d)
     bms, by = bound(nbytes, flops, BF16_TENSOR_OPS_PER_S)
+    # the newer LMs' head layouts at their prefill (batch 4, prompt 2048):
+    # granite-moe on the FMA route, and wgmma at GQA groups of 5, 6 and 8
+    head_layouts, t_layouts = {}, time.perf_counter()
+    for model, (h, hkv, hd) in HEAD_LAYOUTS.items():
+        case = qkv(4, 2048, 2048, h, hkv, hd, bf16)
+        lay_flops = 4.0 * 4 * h * hd * attn_pairs(2048, 2048, True)
+        lay_bytes = 2 * (2 * case[0].numel() + 2 * case[1].numel())
+        what = f"(4, 2048, {h}/{hkv}, {hd}) causal bf16"
+        lay_err = held(case, True, f"{what}, {model}")
+        lay_ms = cuda_ms(lambda: ops.flash_attention(*case, causal=True), reps=10)
+        lay_bound, lay_by = bound(lay_bytes, lay_flops, BF16_TENSOR_OPS_PER_S)
+        head_layouts[model] = {
+            "shape": what, "route": ops.flash_attention_route(bf16, hd)[0],
+            "max_abs_err": lay_err, "ms": lay_ms, "library_ms": cuda_ms(sdpa(case, True), reps=10),
+            "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(*case, causal=True), reps=1),
+            "bound_ms": lay_bound, "bound_by": lay_by, "tflops": lay_flops / lay_ms / 1e9}
+        del case
+    head_layouts_s = time.perf_counter() - t_layouts
     sass = kernel_sass("flash_attention", "attention_wgmma")
     if sass is not None:  # the bf16 route issues wgmma and loads its tiles by TMA
         require(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
@@ -2101,7 +2194,7 @@ def check_flash_attention(dev, results) -> None:
                   "dtype": "bfloat16"},
         "dtype_routes": {f"{str(dt).split('.')[-1]} D={hd}": ops.flash_attention_route(dt, hd)[0]
                          for dt in (bf16, torch.float32) for hd in ops.ATTN_HEAD_DIMS},
-        "head_dims": head_dims,
+        "head_dims": head_dims, "head_layouts": head_layouts, "head_layouts_s": head_layouts_s,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
         "library_ms": library_ms, "tflops": flops / ms / 1e9, "checked": checked,
         "ms_f32": ms_f32, "tflops_f32": flops / ms_f32 / 1e9,
@@ -2150,12 +2243,76 @@ def twin_model(cfg, dtype, dev):
     weights from seed 0, and four 2,048-token prompts from seed 1."""
     from repro_torch.models import transformer as tr
 
-    name = f"qwen2.5-3b-2l-{str(dtype).split('.')[-1]}"
+    name = f"{cfg.name}-2l-{str(dtype).split('.')[-1]}"
     model = dataclasses.replace(cfg, name=name, n_layers=2, param_dtype=dtype)
     params = tr.init_params(model, seed=0, device=dev)
     prompts = torch.randint(0, model.vocab, (4, 2048), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(1))
     return model, params, prompts
+
+
+class RoutePin:
+    """Pins a MoE model's routing across two runs: ``record()`` keeps what
+    each ``_moe_route`` call returns; ``replay()`` hands those back call by
+    call, and keeps for each call, per token, whether its own routing would
+    choose other experts and the gap between its k-th and (k+1)-th
+    probabilities. Outside a MoE model both are no-ops."""
+
+    def __init__(self, moe: bool):
+        self.moe, self.tape, self.notes = moe, [], []
+
+    @contextlib.contextmanager
+    def _patched(self, route):
+        from repro_torch.models import transformer as tr
+
+        if not self.moe:
+            yield
+            return
+        inner, tr._moe_route = tr._moe_route, route
+        try:
+            yield
+        finally:
+            tr._moe_route = inner
+
+    def record(self):
+        from repro_torch.models import transformer as tr
+
+        inner = tr._moe_route
+
+        def route(lp, x2d, cfg):
+            self.tape.append(inner(lp, x2d, cfg))
+            return self.tape[-1]
+        return self._patched(route)
+
+    def replay(self):
+        from repro_torch.models import transformer as tr
+
+        inner = tr._moe_route
+
+        def route(lp, x2d, cfg):
+            gates, eidx = self.tape.pop(0)
+            _, own = inner(lp, x2d, cfg)
+            k = cfg.moe_top_k
+            probs = torch.sort(torch.softmax(x2d.to(torch.float32) @ lp["router"]["w"], dim=-1),
+                               dim=-1, descending=True).values
+            other = (torch.sort(own, dim=-1).values != torch.sort(eidx, dim=-1).values).any(-1)
+            self.notes.append((other, probs[:, k - 1] - probs[:, k]))
+            return gates, eidx
+        return self._patched(route)
+
+    def widest(self, rows=None) -> tuple[int, float]:
+        """(tokens routed apart, the widest gap among them) over the notes
+        since the last call; ``rows`` (B,) bool limits a decode step's
+        tokens to those rows."""
+        n, widest = 0, 0.0
+        for other, gap in self.notes:
+            if rows is not None:
+                other = other & rows
+            n += int(other.sum())
+            if bool(other.any()):
+                widest = max(widest, float(gap[other].max()))
+        self.notes = []
+        return n, widest
 
 
 def twin(cfg, dtype, atol: float, rtol: float, dev) -> dict:
@@ -2166,20 +2323,29 @@ def twin(cfg, dtype, atol: float, rtol: float, dev) -> dict:
     model, params, prompts = twin_model(cfg, dtype, dev)
     name = model.name
     steps = 16
+    pin = RoutePin(model.is_moe)
+    route_gap = TWIN_ROUTE_GAP[dtype]
+    with pin.record():
+        l_p, c_p = tr.prefill(params, prompts, model, 2048 + steps, device=dev, use_kernel=False)
+    plain_routes = list(pin.tape)
     ops.reset_launches()  # ---- the twin's launches are counted from here ----
-    l_k, c_k = tr.prefill(params, prompts, model, 2048 + steps, device=dev)
+    with pin.replay():
+        l_k, c_k = tr.prefill(params, prompts, model, 2048 + steps, device=dev)
     torch.cuda.synchronize()
     launches = ops.launches()  # ---- read right after its prefill ----
     require(launches["flash_attention"] == model.n_layers, f"{name} prefill: {launches}")
-    l_p, c_p = tr.prefill(params, prompts, model, 2048 + steps, device=dev, use_kernel=False)
+    routed_apart, widest = pin.widest()
     err = max_abs_err(l_k, l_p)
     # the yardstick: the library's attention in place of both, never in the port
     attention = tnn.attention
     tnn.attention = library_attention
+    pin.tape = plain_routes
     try:
-        l_lib, _ = tr.prefill(params, prompts, model, 2048 + steps, device=dev)
+        with pin.replay():
+            l_lib, _ = tr.prefill(params, prompts, model, 2048 + steps, device=dev)
     finally:
         tnn.attention = attention
+    pin.notes = []
     err_library = max_abs_err(l_lib, l_p)
     del l_lib
     require(bool(torch.isfinite(l_k).all()) and tuple(l_k.shape) == (4, model.vocab),
@@ -2203,14 +2369,197 @@ def twin(cfg, dtype, atol: float, rtol: float, dev) -> dict:
         live &= ~differ
         if step == steps:
             break
-        l_k, c_k = tr.decode_step(params, c_k, tok_k, model)
-        l_p, c_p = tr.decode_step(params, c_p, tok_p, model)
+        with pin.record():
+            l_p, c_p = tr.decode_step(params, c_p, tok_p, model)
+        with pin.replay():
+            l_k, c_k = tr.decode_step(params, c_k, tok_k, model)
+        n, gap = pin.widest(live)
+        routed_apart, widest = routed_apart + n, max(widest, gap)
         tok_k, tok_p = torch.argmax(l_k, -1), torch.argmax(l_p, -1)
+    require(route_gap is None or widest <= route_gap,
+            f"{name}: a token's own routing with K6 chose other experts at a probability gap "
+            f"of {widest}, over {route_gap}")
     return {"launches": launches, "logits_max_abs_err": err, "atol": atol, "rtol": rtol,
             "tie_atol": tie_atol, "tie_rtol": tie_rtol,
             "library_logits_max_abs_err": err_library,
             "greedy_steps": steps, "diverged": diverged,
-            "rows_equal_throughout": int(live.sum())}
+            "rows_equal_throughout": int(live.sum()),
+            **({"routing_pinned": True, "tokens_routed_apart": routed_apart,
+                "widest_gap_routed_apart": widest, "route_gap": route_gap}
+               if model.is_moe else {})}
+
+
+# ----------------------------------------------------------------------
+# phase: the newer LM configurations (MoE and the wider heads)
+# ----------------------------------------------------------------------
+
+
+def prefill_split(cfg, dev) -> dict:
+    """One warm prefill of ``cfg`` (full, batch 4 x 2,048, weights from seed
+    0) with CUDA events around each K6 call (``nn.attention``) and each MoE
+    FFN: the device milliseconds of each beside the prefill's own (events
+    around it, and the host clock to its synchronize)."""
+    from repro_torch.models import nn as tnn
+    from repro_torch.models import transformer as tr
+
+    params = tr.init_params(cfg, seed=0, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (4, 2048), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    tr.prefill(params, prompts, cfg, 2048, device=dev)  # warm
+    marks = {"attention": [], "moe_ffn": []}
+    inner = {"attention": tnn.attention, "moe_ffn": tr._moe_ffn}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            result = inner[name](*args, **kwargs)
+            b.record()
+            marks[name].append((a, b))
+            return result
+        return call
+
+    tnn.attention, tr._moe_ffn = timed("attention"), timed("moe_ffn")
+    try:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        tr.prefill(params, prompts, cfg, 2048, device=dev)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tnn.attention, tr._moe_ffn = inner["attention"], inner["moe_ffn"]
+    device_ms = start.elapsed_time(end)
+    out = {"prefill_ms": host_ms, "prefill_events_ms": device_ms}
+    for name, pairs in marks.items():
+        ms = sum(a.elapsed_time(b) for a, b in pairs)
+        out[name] = {"calls": len(pairs), "ms": ms, "share": ms / device_ms}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_on_card(cfg, dev) -> dict:
+    """One full-width layer of the MoE ``cfg`` over MOE_TOKENS tokens, in
+    float32 on the card and on the CPU: routing equal but at near-ties
+    (ROUTE_GAP); the card's routing through dispatch, experts and combine on
+    both sides within MOE_TOL; ``_moe_ffn`` twice on the card bit for bit
+    (float32 and bfloat16) and under the sync guard."""
+    from repro_torch.analysis import sanitize
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_map
+
+    model = dataclasses.replace(cfg, n_layers=1, param_dtype=torch.float32)
+    lp = tr.init_params(model, seed=3, device=dev)["layers"][0]
+    x = torch.randn((MOE_TOKENS, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    lp16 = tr.init_params(dataclasses.replace(cfg, n_layers=1), seed=3, device=dev)["layers"][0]
+    x16 = x.to(torch.bfloat16)
+    with sanitize.no_transfers("moe_ffn"):
+        y, y_again = tr._moe_ffn(lp, x, model), tr._moe_ffn(lp, x, model)
+        y16, y16_again = tr._moe_ffn(lp16, x16, cfg), tr._moe_ffn(lp16, x16, cfg)
+    torch.cuda.synchronize()
+    require(torch.equal(y, y_again) and torch.equal(y16, y16_again),
+            "_moe_ffn twice on the card: outputs differ")
+    ms_bf16 = cuda_ms(lambda: tr._moe_ffn(lp16, x16, cfg), reps=10)
+
+    k = cfg.moe_top_k
+    gates, eidx = tr._moe_route(lp, x, model)
+    lp_cpu, x_cpu = tree_map(lambda t: t.cpu(), lp), x.cpu()
+    gates_c, eidx_c = tr._moe_route(lp_cpu, x_cpu, model)
+    probs = torch.sort(torch.softmax(x_cpu @ lp_cpu["router"]["w"], dim=-1), dim=-1,
+                       descending=True).values
+    gap = probs[:, k - 1] - probs[:, k]
+    same_set = (torch.sort(eidx.cpu(), dim=-1).values == torch.sort(eidx_c, dim=-1).values).all(-1)
+    require(bool((same_set | (gap <= ROUTE_GAP)).all()),
+            f"MoE routing on the card differs from the CPU's at a gap over {ROUTE_GAP}")
+    same = (eidx.cpu() == eidx_c).all(-1)
+    gate_err = max_abs_err(gates.cpu()[same], gates_c[same])
+
+    t0 = time.perf_counter()
+    y_cpu = tr._moe_dispatch(lp_cpu, x_cpu, gates.cpu(), eidx.cpu(), model)
+    cpu_s = time.perf_counter() - t0
+    y_card = tr._moe_dispatch(lp, x, gates, eidx, model)
+    require(torch.equal(y_card, y), "_moe_ffn against route + dispatch on the card")
+    err = max_abs_err(y_card.cpu(), y_cpu)
+    atol, rtol = MOE_TOL
+    require(bool(((y_card.cpu() - y_cpu).abs() <= atol + rtol * y_cpu.abs()).all()),
+            f"MoE dispatch/experts/combine, card against CPU: max_abs_err {err}")
+    cap = int(np.ceil(MOE_TOKENS * k / cfg.n_experts * cfg.capacity_factor))
+    counts = torch.bincount(eidx.reshape(-1).cpu(), minlength=cfg.n_experts)
+    return {"tokens": MOE_TOKENS, "experts": cfg.n_experts, "top_k": k, "capacity": cap,
+            "dropped": int((counts - cap).clamp(min=0).sum()),
+            "routing_rows_differ": int((~same_set).sum()), "route_gap": ROUTE_GAP,
+            "smallest_gap": float(gap.min()), "gate_max_abs_err": gate_err,
+            "max_abs_err": err, "atol": atol, "rtol": rtol, "out_scale": float(y_cpu.abs().max()),
+            "bitwise_repeat": True, "sync_guard": "clean", "ms_bf16": ms_bf16,
+            "cpu_dispatch_s": cpu_s}
+
+
+def lm_archs(dev, results) -> dict:
+    """granite-moe-1b-a400m and internlm2-20b served in full in subprocesses;
+    llama4-scout and qwen1.5-110b served in process at full width and reduced
+    depth; granite's prefill split; its two-layer twins; its MoE layer on the
+    card against the CPU."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tr
+
+    out: dict = {"phase": "lm_archs"}
+    t_phase = time.perf_counter()
+    k6 = results["flash_attention"]["head_layouts"]
+    for arch in ("granite-moe-1b-a400m", "internlm2-20b"):
+        served, _ = run_cli("repro_torch.launch.serve",
+                            ["--arch", arch, "--batch", "4", "--prompt-len", "2048", "--gen", "32"],
+                            600, phase="lm_archs_serve")
+        cfg = get_arch(arch).make_config()
+        require(served["params"] == cfg.param_count() and served["model"] == cfg.name,
+                f"serve ran {served['model']}, not the full {cfg.name}")
+        n_k6 = served["launches"]["flash_attention"]
+        require(n_k6 == cfg.n_layers,
+                f"{arch}: serve's prefill launched flash_attention {n_k6} times, not "
+                f"once per layer ({cfg.n_layers})")
+        out[arch] = {"layers": f"{cfg.n_layers} of {cfg.n_layers}", "params": cfg.param_count(),
+                     **{key: served[key] for key in ("prefill_ms", "decode_ms",
+                                                      "decode_tok_per_s", "launches")},
+                     "k6_ms_a_launch": k6[arch]["ms"],
+                     "k6_share_by_kernel_check": n_k6 * k6[arch]["ms"] / served["prefill_ms"]}
+    granite = get_arch("granite-moe-1b-a400m").make_config()
+    out["granite-moe-1b-a400m"]["prefill_split"] = prefill_split(granite, dev)
+
+    for arch, layers in REDUCED_DEPTH.items():
+        full = get_arch(arch).make_config()
+        cfg = dataclasses.replace(full, n_layers=layers)
+        params = tr.init_params(cfg, seed=0, device=dev)
+        prompts = torch.randint(0, cfg.vocab, (4, 2048), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(1))
+        run = serve.generate(params, prompts, cfg, 32, device=dev)
+        n_k6 = run["launches"]["flash_attention"]
+        require(n_k6 == layers, f"{arch} at {layers} layers: {n_k6} K6 launches in its prefill")
+        logits = run["prefill_logits"]
+        require(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (4, cfg.vocab)
+                and run["tokens"].shape == (4, 32), f"{arch}: bad logits or tokens")
+        prefill_ms = run["prefill_s"] * 1e3
+        out[arch] = {"layers": f"{layers} of {full.n_layers}",
+                     "why": f"{full.param_count() * 2 / 1e9:.0f} GB of bf16 weights whole; "
+                            f"{layers} full-width layers and the embeddings are "
+                            f"{cfg.param_count() * 2 / 1e9:.1f} GB of the card's 80",
+                     "params": cfg.param_count(), "params_full": full.param_count(),
+                     "prefill_ms": prefill_ms, "decode_ms": run["decode_s"] * 1e3,
+                     "decode_tok_per_s": 4 * 31 / run["decode_s"], "launches": run["launches"],
+                     "k6_ms_a_launch": k6[arch]["ms"],
+                     "k6_share_by_kernel_check": n_k6 * k6[arch]["ms"] / prefill_ms}
+        del params, run, logits
+        torch.cuda.empty_cache()
+
+    for dtype, (atol, rtol) in LOGIT_TOL.items():
+        out[f"twin_{str(dtype).split('.')[-1]}"] = twin(granite, dtype, atol, rtol, dev)
+        torch.cuda.empty_cache()
+    out["moe_on_card"] = moe_on_card(granite, dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -2245,22 +2594,16 @@ def lm_grads(model, params, batch, use_kernel: bool):
     return loss.detach(), torch.autograd.grad(loss, flat)
 
 
-def train(dev, tmp: str) -> dict:
-    from repro_torch.checkpoint import manager as ckpt
-    from repro_torch.configs import qwen2_5_3b, xdeepfm
-    from repro_torch.data.pipeline import MarkovLMStream, RecsysStream
+def lm_train_steps(cfg, dev) -> tuple[dict, dict, dict]:
+    """The full ``cfg`` takes TRAIN_STEPS ``make_lm_train`` steps at batch 1 x
+    TRAIN_SEQ ``MarkovLMStream`` tokens (weights from seed 0, AdamW), K6
+    counted from 0 around the steps: (its line, params, opt_state)."""
+    from repro_torch.data.pipeline import MarkovLMStream
     from repro_torch.kernels import ops
-    from repro_torch.models import recsys as rc
     from repro_torch.models import transformer as tr
     from repro_torch.optim import adamw
     from repro_torch.train import steps
-    from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
-    out: dict = {"phase": "train"}
-    t_phase = time.perf_counter()
-
-    # -- the full qwen2.5-3b (36 layers, bf16), TRAIN_STEPS steps --
-    cfg = qwen2_5_3b.make_config()
     stream = MarkovLMStream(vocab=cfg.vocab, batch=1, seq=TRAIN_SEQ)
     t0 = time.perf_counter()
     params = tr.init_params(cfg, seed=0, device=dev)
@@ -2283,21 +2626,43 @@ def train(dev, tmp: str) -> dict:
     launches = ops.launches()  # ---- read right after the steps ----
     peak = torch.cuda.max_memory_allocated()
     require(launches["flash_attention"] == cfg.n_layers * TRAIN_STEPS,
-            f"qwen2.5-3b training: {launches['flash_attention']} K6 launches in "
+            f"{cfg.name} training: {launches['flash_attention']} K6 launches in "
             f"{TRAIN_STEPS} steps, not {cfg.n_layers} a step")
     require(all(np.isfinite(losses + gnorms)) and int(opt_state["count"]) == TRAIN_STEPS,
-            f"qwen2.5-3b training: loss {losses}, grad_norm {gnorms}")
+            f"{cfg.name} training: loss {losses}, grad_norm {gnorms}")
     require(abs(losses[0] - np.log(cfg.vocab)) < 1.0,
-            f"qwen2.5-3b's first loss {losses[0]} is not near ln(vocab) {np.log(cfg.vocab)}")
+            f"{cfg.name}'s first loss {losses[0]} is not near ln(vocab) {np.log(cfg.vocab)}")
     warm = statistics.median(step_s[1:])
-    out["qwen2.5-3b"] = {
+    line = {
         "layers": cfg.n_layers, "dtype": str(cfg.param_dtype).split(".")[-1],
         "params": cfg.param_count(),
         "batch": [1, TRAIN_SEQ], "steps": TRAIN_STEPS, "init_s": init_s, "step_s": step_s,
         "step_ms_warm": warm * 1e3, "tokens_per_s": TRAIN_SEQ / warm, "losses": losses,
         "grad_norms": gnorms, "peak_gb": peak / 1e9, "launches": launches,
         "k6_launches_per_step": launches["flash_attention"] / TRAIN_STEPS}
-    del params, opt_state, batches, metrics
+    return line, params, opt_state
+
+
+def train(dev, tmp: str) -> dict:
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import qwen2_5_3b, xdeepfm
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import MarkovLMStream, RecsysStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import recsys as rc
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    out: dict = {"phase": "train"}
+    t_phase = time.perf_counter()
+
+    # -- the full qwen2.5-3b (36 layers, bf16), TRAIN_STEPS steps --
+    cfg = qwen2_5_3b.make_config()
+    out["qwen2.5-3b"], params, opt_state = lm_train_steps(cfg, dev)
+    del params, opt_state
     torch.cuda.empty_cache()
 
     # -- the two-layer, full-width float32 twin: K6 against plain attention --
@@ -2338,6 +2703,35 @@ def train(dev, tmp: str) -> dict:
                     worst_grad_diff_of_max=worst)
     out["twin_float32"] = twin_out
     del grads, batch
+    torch.cuda.empty_cache()
+
+    # -- the full granite-moe-1b-a400m (24 layers, bf16, MoE), TRAIN_STEPS
+    # steps, then one checkpoint of (params, opt_state) by launch/train.py's own
+    # save (layers stacked on the host) and restore (row by row) --
+    t_granite = time.perf_counter()
+    gcfg = get_arch("granite-moe-1b-a400m").make_config()
+    out["granite-moe-1b-a400m"], params, opt_state = lm_train_steps(gcfg, dev)
+    tree = (params, opt_state)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(tree))
+    where = os.path.join(tmp, "granite_ckpt")
+    t0 = time.perf_counter()
+    ckpt.save(where, TRAIN_STEPS, train_cli._lm_to_ckpt(params, opt_state))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, step = ckpt.restore(where, tree, locate=train_cli._lm_locate)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    require(step == TRAIN_STEPS, f"restored step {step}")
+    for (path, a), b in zip(leaves_with_paths(tree), leaves(restored)):
+        require(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b),
+                f"granite checkpoint leaf {path} restored differently")
+    require(restored[0]["layers"][0]["router"]["w"].dtype == torch.float32
+            and restored[0]["layers"][0]["w_gate"].ndim == 3, "granite checkpoint: MoE layout")
+    out["granite-moe-1b-a400m"].update(checkpoint_bytes=nbytes, save_s=save_s,
+                                        restore_s=restore_s, leaves=len(leaves(tree)),
+                                        seconds=time.perf_counter() - t_granite)
+    shutil.rmtree(where)
+    del params, opt_state, tree, restored
     torch.cuda.empty_cache()
 
     # -- the full xdeepfm at launch/train.py's batch, then one checkpoint --
@@ -2382,18 +2776,23 @@ def train(dev, tmp: str) -> dict:
     del params, opt_state, tree, restored, metrics
     torch.cuda.empty_cache()
 
-    # -- in subprocesses: launch/train.py's resume, train_lm, the kNN example twins --
-    ck_dir = os.path.join(tmp, "train_ckpt")
-    args = ["--arch", "qwen2.5-3b", "--smoke", "--ckpt-dir", ck_dir, "--ckpt-every", "3",
-            "--log-every", "2"]
-    _, first = run_cli("repro_torch.launch.train", [*args, "--steps", "6"], 300, "train_cli",
-                       json_out=False)
-    _, resumed = run_cli("repro_torch.launch.train", [*args, "--steps", "8"], 300, "train_cli",
-                         json_out=False)
-    require(any(line.startswith("final loss") for line in first),
-            f"launch.train: {first[-1:]}")
-    require("resumed from step 6" in resumed, f"launch.train --steps 8 did not resume: {resumed}")
-    shutil.rmtree(ck_dir)
+    # -- in subprocesses: launch/train.py's resume (a dense and a MoE LM),
+    # train_lm, the kNN example twins --
+    for arch in ("qwen2.5-3b", "granite-moe-1b-a400m"):
+        t_cli = time.perf_counter()
+        ck_dir = os.path.join(tmp, "train_ckpt")
+        args = ["--arch", arch, "--smoke", "--ckpt-dir", ck_dir, "--ckpt-every", "3",
+                "--log-every", "2"]
+        _, first = run_cli("repro_torch.launch.train", [*args, "--steps", "6"], 300, "train_cli",
+                           json_out=False)
+        _, resumed = run_cli("repro_torch.launch.train", [*args, "--steps", "8"], 300,
+                             "train_cli", json_out=False)
+        require(any(line.startswith("final loss") for line in first),
+                f"launch.train --arch {arch}: {first[-1:]}")
+        require("resumed from step 6" in resumed,
+                f"launch.train --arch {arch} --steps 8 did not resume: {resumed}")
+        shutil.rmtree(ck_dir)
+        out[f"resume_{arch}_s"] = time.perf_counter() - t_cli
     lm15, _ = run_cli("repro_torch.examples.train_lm", [], 600, phase="train_lm")
     require(lm15["loss"] < lm15["first_loss"] - 0.5, f"train_lm: {lm15}")
     require(lm15["launches"]["flash_attention"] == 4 * lm15["steps"],
@@ -2483,10 +2882,19 @@ def main() -> int:
     lm_out = lm(dev)
     say(lm_out)
     torch.cuda.empty_cache()
+    archs_out = lm_archs(dev, results)
+    say(archs_out)
+    torch.cuda.empty_cache()
     os.makedirs(tmp)
     train_out = train(dev, tmp)
     say(train_out)
     shutil.rmtree(tmp)
+    # the MoE and newer-LM work: K6 at their head layouts, the lm_archs phase,
+    # granite's training, checkpoint and launch.train resume
+    say({"phase": "lm_archs_work_seconds",
+         "seconds": results["flash_attention"]["head_layouts_s"] + archs_out["seconds"]
+         + train_out["granite-moe-1b-a400m"]["seconds"]
+         + train_out["resume_granite-moe-1b-a400m_s"]})
     say({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     # which run each kernel's launch count covers: the main path runs K1-K3
@@ -2494,7 +2902,8 @@ def main() -> int:
     # sweep_merge in the flushes' repair rounds),
     # the certificate minplus, the recsys retrieval retrieval_topk, the full
     # qwen2.5-3b's training steps flash_attention (counted from 0 just before
-    # them; launches_lm: serve.py's prefill). The numbers beside each count are its
+    # them; launches_lm: serve.py's prefill; launches_lm_archs: the granite-moe
+    # and internlm2 prefills of serve.py). The numbers beside each count are its
     # kernel check's (minplus at 4096^3, its time at the certificate's own
     # shape is on the certify line; retrieval_topk at the retrieval cell's
     # (1, 10^6); flash_attention at the prefill's (4, 2048, 16/2, 128))
@@ -2514,14 +2923,16 @@ def main() -> int:
     phases = {name: ["main_path", "sharded"]
               for name in ("topk_merge", "sweep_merge", "sweep_merge_levels", "frontier_relax")}
     phases.update(minplus=["certify", "cli"], retrieval_topk=["recsys"],
-                  flash_attention=["lm", "train"])
+                  flash_attention=["lm", "lm_archs", "train"])
     counted["minplus"] = ("certify", cert["launches"]["minplus"], results["minplus"])
     counted["retrieval_topk"] = ("recsys", rec["launches"]["retrieval_topk"],
                                  results["retrieval_topk"])
     counted["flash_attention"] = (
         "train", train_out["qwen2.5-3b"]["launches"]["flash_attention"],
         {**results["flash_attention"],
-         "launches_lm": lm_out["serve"]["launches"]["flash_attention"]})
+         "launches_lm": lm_out["serve"]["launches"]["flash_attention"],
+         "launches_lm_archs": {arch: archs_out[arch]["launches"]["flash_attention"]
+                               for arch in ("granite-moe-1b-a400m", "internlm2-20b")}})
     say({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name.removesuffix('_levels')}.cu",
@@ -2530,7 +2941,8 @@ def main() -> int:
          **({"launches_sharded": shard["launches"][name]} if "sharded" in phases[name] else {}),
          **{key: counted[name][2][key] for key in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-            + tuple(key for key in ("dtype_routes", "launches_per_call", "launches_lm")
+            + tuple(key for key in ("dtype_routes", "launches_per_call", "launches_lm",
+                                    "launches_lm_archs")
                     if key in counted[name][2])}}
         for name in replaces
     ]})

@@ -1,11 +1,20 @@
-"""Architecture registry of the port: ``--arch <id>`` for the three
-architectures it runs, each with its family (which driver serves it)."""
+"""Architecture registry of the port: ``--arch <id>`` for the seven
+architectures it runs (the kNN index, xdeepfm and five LMs), each with its
+family (which entry point serves it)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-from repro_torch.configs import knn_index, qwen2_5_3b, xdeepfm
+from repro_torch.configs import (
+    granite_moe_1b_a400m,
+    internlm2_20b,
+    knn_index,
+    llama4_scout_17b_a16e,
+    qwen1_5_110b,
+    qwen2_5_3b,
+    xdeepfm,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,7 +30,13 @@ _ARCHS = {
     for a in [
         ArchSpec("knn-index", "knn", knn_index.make_config, knn_index.make_smoke),
         ArchSpec("xdeepfm", "recsys", xdeepfm.make_config, xdeepfm.make_smoke),
+        ArchSpec("granite-moe-1b-a400m", "lm", granite_moe_1b_a400m.make_config,
+                 granite_moe_1b_a400m.make_smoke),
+        ArchSpec("llama4-scout-17b-a16e", "lm", llama4_scout_17b_a16e.make_config,
+                 llama4_scout_17b_a16e.make_smoke),
         ArchSpec("qwen2.5-3b", "lm", qwen2_5_3b.make_config, qwen2_5_3b.make_smoke),
+        ArchSpec("internlm2-20b", "lm", internlm2_20b.make_config, internlm2_20b.make_smoke),
+        ArchSpec("qwen1.5-110b", "lm", qwen1_5_110b.make_config, qwen1_5_110b.make_smoke),
     ]
 }
 

@@ -28,7 +28,7 @@ SLICE_POISON = 2
 _TOPK_TEMP_BYTES = 1 << 30
 # retrieval_keys' "no candidate" (K5's key 0), below every other key
 _NO_KEY = torch.iinfo(torch.int64).min
-# query and kv rows per block of flash_attention_ref
+# query rows per block of flash_attention_ref, and its kv rows by default
 _ATTN_BLOCK = 1024
 
 
@@ -266,16 +266,20 @@ def retrieval_topk_parts_ref(scores: torch.Tensor, k: int, parts: int):
     return ids.to(torch.int32), top.to(scores.dtype)
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool):
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                        kv_block: int = _ATTN_BLOCK):
     """Attention over blocks with an online softmax, as ``nn.chunked_attention``
     and the Pallas kernel compute it: q (B, S, H, D), k and v (B, T, Hkv, D).
 
     Grouped-query heads by a (Hkv, H/Hkv) view, never by repeating K and V;
     causal on absolute positions; scores, running max, sum and accumulator in
     float32, p rounded to v's type before the PV product, a fully masked row
-    0; output in q's type. Blocks of 1024 query and kv rows bound the
-    temporaries, so the kernel's own shapes (S = T = 32,768) fit; kv blocks
-    past a query block's last row are skipped under the causal mask.
+    0; output in q's type. Blocks of 1024 query rows and ``kv_block`` kv rows
+    bound the temporaries, so the kernel's own shapes (S = T = 32,768) fit;
+    kv blocks past a query block's last row are skipped under the causal
+    mask. p is rounded against the running max over the kv blocks so far, so
+    in bfloat16 ``kv_block`` decides the scale each p is rounded at, as
+    ``block_k`` does in the Pallas kernel.
     """
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -292,9 +296,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, ca
         l = torch.zeros((b, hkv, rep, sq), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, hkv, rep, sq, d), dtype=torch.float32, device=dev)
         k_end = min(t, q0 + sq) if causal else t
-        for k0 in range(0, k_end, _ATTN_BLOCK):
-            kb = k[:, k0 : k0 + _ATTN_BLOCK].to(torch.float32)
-            vb = v[:, k0 : k0 + _ATTN_BLOCK]
+        for k0 in range(0, k_end, kv_block):
+            kb = k[:, k0 : k0 + kv_block].to(torch.float32)
+            vb = v[:, k0 : k0 + kv_block]
             sc = torch.einsum("bqgrd,bkgd->bgrqk", qb, kb) * scale
             if causal:
                 k_pos = torch.arange(k0, k0 + kb.shape[1], device=dev)

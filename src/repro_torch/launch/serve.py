@@ -1,7 +1,8 @@
 """Serving driver, dispatched by architecture family.
 
-LM archs (``qwen2.5-3b``): batched prefill, then an autoregressive decode
-loop; the prefill's attention is the K6 kernel:
+LM archs (``granite-moe-1b-a400m``, ``llama4-scout-17b-a16e``, ``qwen2.5-3b``,
+``internlm2-20b``, ``qwen1.5-110b``): batched prefill, then an autoregressive
+decode loop; the prefill's attention is the K6 kernel:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --batch 4 --prompt-len 2048 --gen 32
@@ -97,6 +98,40 @@ def _next_tokens(logits: torch.Tensor, temperature: float, gen: torch.Generator)
     return torch.argmax(logits, dim=-1)
 
 
+def generate(params, prompts: torch.Tensor, cfg, gen: int, *, device, use_kernel: bool = True,
+             temperature: float = 0.0) -> dict:
+    """Prefill the prompts (B, S), then ``gen - 1`` decode steps, greedy or
+    sampled: one untimed prefill and decode step first (kernel build and
+    load, library handles, allocator), then the timed run, its launch
+    counts read from 0. Returns the seconds of each half, the launches, the
+    prefill's last-position logits (B, V) and the tokens (B, gen)."""
+    from repro_torch.models import transformer as tr
+
+    max_len = prompts.shape[1] + gen
+    logits, cache = tr.prefill(params, prompts, cfg, max_len, device=device, use_kernel=use_kernel)
+    tr.decode_step(params, cache, torch.argmax(logits, dim=-1), cfg)
+    del logits, cache
+    synchronize(device)
+
+    ops.reset_launches()
+    sampler = torch.Generator(device=device).manual_seed(100)
+    t0 = time.perf_counter()
+    logits, cache = tr.prefill(params, prompts, cfg, max_len, device=device, use_kernel=use_kernel)
+    tokens = _next_tokens(logits, temperature, sampler)
+    synchronize(device)
+    t_prefill = time.perf_counter() - t0
+    first, generated = logits, [tokens]
+    t0 = time.perf_counter()
+    for _ in range(gen - 1):
+        logits, cache = tr.decode_step(params, cache, tokens, cfg)
+        tokens = _next_tokens(logits, temperature, sampler)
+        generated.append(tokens)
+    synchronize(device)
+    return {"prefill_s": t_prefill, "decode_s": time.perf_counter() - t0,
+            "launches": ops.launches(), "prefill_logits": first,
+            "tokens": torch.stack(generated, dim=1).cpu().numpy()}
+
+
 def serve_lm(args) -> dict:
     """Batched prefill + greedy (or sampled) decode loop."""
     from repro_torch.models import transformer as tr
@@ -105,36 +140,11 @@ def serve_lm(args) -> dict:
     arch = get_arch(args.arch)
     cfg = arch.make_smoke() if args.smoke else arch.make_config()
     params = tr.init_params(cfg, seed=0, device=device)
-    max_len = args.prompt_len + args.gen
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), device=device,
                             generator=torch.Generator(device=device).manual_seed(1))
-
-    # warm-up: kernel build and load, library handles, allocator
-    logits, cache = tr.prefill(params, prompts, cfg, max_len, device=device,
-                               use_kernel=args.use_kernel)
-    tr.decode_step(params, cache, torch.argmax(logits, dim=-1), cfg)
-    del logits, cache
-    synchronize(device)
-
-    ops.reset_launches()
-    gen = torch.Generator(device=device).manual_seed(100)
-    t0 = time.perf_counter()
-    logits, cache = tr.prefill(params, prompts, cfg, max_len, device=device,
-                               use_kernel=args.use_kernel)
-    tokens = _next_tokens(logits, args.temperature, gen)
-    synchronize(device)
-    t_prefill = time.perf_counter() - t0
-    generated = [tokens]
-    t0 = time.perf_counter()
-    for _ in range(args.gen - 1):
-        logits, cache = tr.decode_step(params, cache, tokens, cfg)
-        tokens = _next_tokens(logits, args.temperature, gen)
-        generated.append(tokens)
-    synchronize(device)
-    t_decode = time.perf_counter() - t0
-    launches = ops.launches()
-
-    out = torch.stack(generated, dim=1).cpu().numpy()
+    run = generate(params, prompts, cfg, args.gen, device=device, use_kernel=args.use_kernel,
+                   temperature=args.temperature)
+    t_prefill, t_decode, out = run["prefill_s"], run["decode_s"], run["tokens"]
     tps = args.batch * (args.gen - 1) / max(t_decode, 1e-9)
     print(f"model {cfg.name}: prefill({args.batch}x{args.prompt_len}) "
           f"{t_prefill * 1e3:.1f} ms; decode {args.gen - 1} steps "
@@ -144,7 +154,7 @@ def serve_lm(args) -> dict:
         "arch": args.arch, "model": cfg.name, "device": str(device),
         "batch": args.batch, "prompt_len": args.prompt_len, "gen": args.gen,
         "params": cfg.param_count(), "prefill_ms": t_prefill * 1e3,
-        "decode_ms": t_decode * 1e3, "decode_tok_per_s": tps, "launches": launches,
+        "decode_ms": t_decode * 1e3, "decode_tok_per_s": tps, "launches": run["launches"],
         "tokens": out.tolist(),
     }
     print(json.dumps({key: val for key, val in stats.items() if key != "tokens"}))

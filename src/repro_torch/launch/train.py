@@ -5,11 +5,13 @@ of ``repro/launch/train.py``: the same flags and printed lines.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       --smoke --steps 50 --ckpt-dir /tmp/ckpt --ckpt-every 20 [--device cpu]
 
-Families: ``lm`` (qwen2.5-3b) and ``recsys`` (xdeepfm). Without ``--smoke`` the
+Families: ``lm`` (granite-moe-1b-a400m, llama4-scout-17b-a16e, qwen2.5-3b,
+internlm2-20b, qwen1.5-110b) and ``recsys`` (xdeepfm). Without ``--smoke`` the
 streams have the JAX driver's full shapes (LM batch 256 x 4,096 tokens,
 recsys batch 65,536), which the JAX package runs on a mesh; on one card the
 full LM shapes do not fit (``chip_smoke.py``'s ``train`` phase trains the
-full qwen2.5-3b at batch 1 x 2,048 through ``train.steps`` instead).
+full qwen2.5-3b and granite-moe-1b-a400m at batch 1 x 2,048 through
+``train.steps`` instead).
 Initial parameters come from the port's seeded generators (seed 0), so the
 losses differ from the JAX driver's; the step function is what the tests
 hold to JAX. Checkpoints are the JAX driver's tree, ``(params, opt_state)``
@@ -81,7 +83,7 @@ def main(argv=None):
 
     if args.arch in GNN_ARCHS:
         raise SystemExit(f"--arch {args.arch}: the GNN family is not ported yet "
-                         "(ROADMAP Queue A item 8)")
+                         "(ROADMAP Queue A, the GNN family)")
     arch = get_arch(args.arch)
     device = resolve_device(args.device)
     cfg = arch.make_smoke() if args.smoke else arch.make_config()

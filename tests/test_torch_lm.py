@@ -139,6 +139,35 @@ def test_flash_attention_prefill_heads_uneven_match_jax(s, t, causal, dtype):
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("kv_block", [128, 64])
+def test_flash_attention_ref_kv_block_rounds_as_the_pallas_block(kv_block):
+    """The plain version at ``kv_block`` rounds p against the same running
+    max as the Pallas kernel at ``block_k = kv_block`` (bf16, the prefill's
+    head layout): outputs equal but where float32 sums in another order move
+    a bf16 rounding, at most 1e-3 of them, each within half of chip_smoke's
+    per-element bound on the wgmma route (1e-3 + 1.6e-2 |value|), which
+    holds K6 to the plain version at its route's tile."""
+    q, k, v = _qkv(1, 256, 256, 16, 2, 128, 7)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(jops.flash_attention(jq, jk, jv, causal=True, block_q=128,
+                                           block_k=kv_block), np.float32)
+    got = ref.flash_attention_ref(tq, tk, tv, causal=True, kv_block=kv_block).float().numpy()
+    diff = np.abs(got - want)
+    assert (diff > 0).mean() <= 1e-3
+    assert (diff <= 0.5 * (1e-3 + 1.6e-2 * np.abs(want))).all()
+
+
+@pytest.mark.parametrize("s,t,causal", [(37, 53, False), (70, 70, True), (130, 260, False)])
+def test_flash_attention_ref_kv_block_matches_jax(s, t, causal):
+    """float32, kv blocks no length is a multiple of: the oracle's function
+    (2e-5, as above)."""
+    q, k, v = _qkv(2, s, t, 4, 2, 8, s * t)
+    got = ref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)), causal=causal, kv_block=16)
+    want = jref.flash_attention_ref(*map(jnp.asarray, (q, k, v)), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
 # the shapes of the JAX package's test_flash_attention_sweep (its blocks
 # block_q, block_k for the Pallas run), and (2, 48, 48, 4/2) causal
 HEAD_DIM_SHAPES = [
@@ -318,16 +347,37 @@ def test_prefill_and_decode_match_jax(seed, batch, prompt):
 
 
 def test_configs_match_jax():
-    for ours, theirs in ((qwen2_5_3b.make_config(), jqwen.make_config()),
-                         (qwen2_5_3b.make_smoke(), jqwen.make_smoke())):
-        for field in ("name", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_head", "d_ff",
-                      "vocab", "qkv_bias", "rope_theta"):
-            assert getattr(ours, field) == getattr(theirs, field)
-        assert ours.param_count() == theirs.param_count()
+    """The five LM configurations, full and smoke, field for field (the MoE
+    fields included) and in their parameter counts; the registry's
+    families."""
+    from repro.configs import granite_moe_1b_a400m as jgranite
+    from repro.configs import internlm2_20b as jinternlm2
+    from repro.configs import llama4_scout_17b_a16e as jllama4
+    from repro.configs import qwen1_5_110b as jqwen15
+    from repro_torch.configs import (granite_moe_1b_a400m, internlm2_20b, llama4_scout_17b_a16e,
+                                     qwen1_5_110b)
+
+    pairs = {"granite-moe-1b-a400m": (granite_moe_1b_a400m, jgranite),
+             "llama4-scout-17b-a16e": (llama4_scout_17b_a16e, jllama4),
+             "qwen2.5-3b": (qwen2_5_3b, jqwen),
+             "internlm2-20b": (internlm2_20b, jinternlm2),
+             "qwen1.5-110b": (qwen1_5_110b, jqwen15)}
+    for arch, (mine, jax_mod) in pairs.items():
+        assert registry.get_arch(arch).make_config is mine.make_config
+        for ours, theirs in ((mine.make_config(), jax_mod.make_config()),
+                             (mine.make_smoke(), jax_mod.make_smoke())):
+            for field in ("name", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_head",
+                          "d_ff", "vocab", "qkv_bias", "rope_theta", "n_experts", "moe_top_k",
+                          "capacity_factor", "is_moe"):
+                assert getattr(ours, field) == getattr(theirs, field), (arch, field)
+            assert str(ours.param_dtype).split(".")[-1] == jnp.dtype(theirs.param_dtype).name
+            assert ours.param_count() == theirs.param_count()
+            assert ours.active_param_count() == theirs.active_param_count()
     assert qwen2_5_3b.make_config().param_dtype == torch.bfloat16
     assert 3.3e9 < qwen2_5_3b.make_config().param_count() < 3.5e9
     assert {registry.get_arch(a).family for a in ("knn-index", "xdeepfm", "qwen2.5-3b")} == {
         "knn", "recsys", "lm"}
+    assert {registry.get_arch(a).family for a in pairs} == {"lm"}
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get_arch("gcn-cora")
 

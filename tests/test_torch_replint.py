@@ -75,9 +75,10 @@ def test_port_rail_reaches_the_flush_and_query_paths():
     modules, _ = parse_modules(collect_files([str(REPO / "src" / "repro_torch")]))
     graph = build_callgraph(modules)
     roots = {f.qualname for f in graph.roots()}
-    assert roots == {"EngineCore.query_batch", "EngineCore.flush_updates"}
+    assert roots == {"EngineCore.query_batch", "EngineCore.flush_updates", "_moe_ffn"}
     reached = {k.split(":")[1] for k in graph.reachable}
-    for name in ("QueryEngine._gather_batch", "ShardedQueryEngine._gather_batch",
+    for name in ("_moe_route", "_moe_dispatch",
+                 "QueryEngine._gather_batch", "ShardedQueryEngine._gather_batch",
                  "EngineCore._insert_frontier", "EngineCore._frontier_round",
                  "QueryEngine._frontier_extract", "ShardedQueryEngine._fhalo",
                  "QueryEngine._repair_part", "ShardedQueryEngine._repair_part_host",

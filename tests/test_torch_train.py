@@ -275,7 +275,7 @@ def test_train_recsys_and_refusals(tmp_path, capsys):
                              "--ckpt-dir", str(tmp_path)])
     assert len(losses) == 3 and all(np.isfinite(losses))
     assert "final loss" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="Queue A item 8"):
+    with pytest.raises(SystemExit, match="Queue A, the GNN family"):
         train_cli.main(["--arch", "egnn", "--smoke", "--device", "cpu"])
     with pytest.raises(ValueError):
         train_cli.main(["--arch", "knn-index", "--smoke", "--device", "cpu"])

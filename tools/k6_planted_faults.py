@@ -12,8 +12,9 @@ and measures, on the faulted route (both routes for the intact kernel):
 - fma (bf16 at D < 128): K6 at (4, 2048, 16/2, D) for D = 8, 16, 32, 64 and
   at (2, 300, 8/2, 8), causal;
 
-each against its plain version under chip_smoke's bounds (``attn_held``:
-ATTN_TOL, and the route's ATTN_ULPS_BF16); a ratio over 1 fails a bound.
+each against its plain version at the route's kv tile (chip_smoke's
+``attn_plain``) under chip_smoke's bounds (``attn_held``: ATTN_TOL, and the
+route's ATTN_ULPS_BF16); a ratio over 1 fails a bound.
 
 Each fault touches only the heaviest query tile of each (b, h) (the last 128
 rows on the wgmma route, 64 on the fma route), at the middle one of its kv
@@ -106,7 +107,7 @@ def measure(routes: list[str]) -> dict:
 
     import chip_smoke as cs
     from repro_torch.configs import qwen2_5_3b
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as tr
 
     dev = torch.device("cuda", 0)
@@ -119,7 +120,7 @@ def measure(routes: list[str]) -> dict:
             q, k, v = (torch.randn(shape, generator=gen, device=dev).to(bf16)
                        for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
             got = ops.flash_attention(q, k, v, causal=True)
-            want = ref.flash_attention_ref(q, k, v, causal=True)
+            want = cs.attn_plain(q, k, v, causal=True)
             torch.cuda.synchronize()
             rows = 128 if route == "wgmma" else 64
             attention.append({"route": route, "B": b, "S": s, "H": h, "Hkv": hkv, "D": d,
