@@ -1,16 +1,22 @@
-"""Architecture registry of the port: ``--arch <id>`` for the seven
-architectures it runs (the kNN index, xdeepfm and five LMs), each with its
-family (which entry point serves it)."""
+"""Architecture registry of the port: ``--arch <id>`` for the eleven
+architectures it runs (the kNN index, xdeepfm, five LMs and four GNNs), each
+with its family (which entry point serves or trains it). A GNN's
+``make_config`` takes the name of a shape of ``configs.common.gnn_shapes()``,
+as in the JAX package."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
 from repro_torch.configs import (
+    egnn,
+    gcn_cora,
     granite_moe_1b_a400m,
     internlm2_20b,
     knn_index,
     llama4_scout_17b_a16e,
+    mace,
+    nequip,
     qwen1_5_110b,
     qwen2_5_3b,
     xdeepfm,
@@ -20,7 +26,7 @@ from repro_torch.configs import (
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str  # "knn" | "lm" | "recsys"
+    family: str  # "knn" | "lm" | "recsys" | "gnn"
     make_config: Callable
     make_smoke: Callable
 
@@ -37,6 +43,10 @@ _ARCHS = {
         ArchSpec("qwen2.5-3b", "lm", qwen2_5_3b.make_config, qwen2_5_3b.make_smoke),
         ArchSpec("internlm2-20b", "lm", internlm2_20b.make_config, internlm2_20b.make_smoke),
         ArchSpec("qwen1.5-110b", "lm", qwen1_5_110b.make_config, qwen1_5_110b.make_smoke),
+        ArchSpec("egnn", "gnn", egnn.make_config, egnn.make_smoke),
+        ArchSpec("gcn-cora", "gnn", gcn_cora.make_config, gcn_cora.make_smoke),
+        ArchSpec("nequip", "gnn", nequip.make_config, nequip.make_smoke),
+        ArchSpec("mace", "gnn", mace.make_config, mace.make_smoke),
     ]
 }
 

@@ -551,10 +551,11 @@ def main(argv=None):
         return serve_lm(args)
     if family == "knn":
         return serve_knn(args)
+    entry = {"recsys": "python -m repro_torch.examples.retrieval_recsys",
+             "gnn": "python -m repro_torch.launch.train"}
     raise SystemExit(
         f"serve.py serves an arch of the 'lm' or 'knn' arch family; {args.arch!r} is "
-        + (f"of the {family!r} family (its entry point is "
-           "python -m repro_torch.examples.retrieval_recsys)" if family
+        + (f"of the {family!r} family (its entry point is {entry[family]})" if family
            else "not an arch of this package")
     )
 

@@ -6,12 +6,13 @@ of ``repro/launch/train.py``: the same flags and printed lines.
       --smoke --steps 50 --ckpt-dir /tmp/ckpt --ckpt-every 20 [--device cpu]
 
 Families: ``lm`` (granite-moe-1b-a400m, llama4-scout-17b-a16e, qwen2.5-3b,
-internlm2-20b, qwen1.5-110b) and ``recsys`` (xdeepfm). Without ``--smoke`` the
-streams have the JAX driver's full shapes (LM batch 256 x 4,096 tokens,
-recsys batch 65,536), which the JAX package runs on a mesh; on one card the
-full LM shapes do not fit (``chip_smoke.py``'s ``train`` phase trains the
-full qwen2.5-3b and granite-moe-1b-a400m at batch 1 x 2,048 through
-``train.steps`` instead).
+internlm2-20b, qwen1.5-110b), ``recsys`` (xdeepfm) and ``gnn`` (gcn-cora,
+egnn, nequip, mace). Without ``--smoke`` the streams have the JAX driver's
+full shapes (LM batch 256 x 4,096 tokens, recsys batch 65,536, GNN the
+``molecule`` config on 128 graphs of 12 nodes and 32 edges), which the JAX
+package runs on a mesh; on one card the full LM shapes do not fit
+(``chip_smoke.py``'s ``train`` phase trains the full qwen2.5-3b and
+granite-moe-1b-a400m at batch 1 x 2,048 through ``train.steps`` instead).
 Initial parameters come from the port's seeded generators (seed 0), so the
 losses differ from the JAX driver's; the step function is what the tests
 hold to JAX. Checkpoints are the JAX driver's tree, ``(params, opt_state)``
@@ -36,9 +37,6 @@ from repro_torch.models import transformer as tr
 from repro_torch.optim import adamw
 from repro_torch.train import steps as steps_mod
 
-# the JAX package's GNN archs, not in the port yet
-GNN_ARCHS = ("gcn-cora", "egnn", "nequip", "mace")
-
 
 def make_stream(arch, cfg, smoke: bool):
     if arch.family == "lm":
@@ -49,6 +47,9 @@ def make_stream(arch, cfg, smoke: bool):
         return pipeline.RecsysStream(
             n_sparse=cfg.n_sparse, bag=cfg.bag_size, rows=cfg.table_rows, batch=b
         )
+    if arch.family == "gnn":
+        b = 8 if smoke else 128
+        return pipeline.GraphStream(n_nodes=12, n_edges=32, batch=b, d_feat=cfg.d_feat)
     raise ValueError(arch.family)
 
 
@@ -81,12 +82,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.arch in GNN_ARCHS:
-        raise SystemExit(f"--arch {args.arch}: the GNN family is not ported yet "
-                         "(ROADMAP Queue A, the GNN family)")
     arch = get_arch(args.arch)
     device = resolve_device(args.device)
-    cfg = arch.make_smoke() if args.smoke else arch.make_config()
+    if arch.family == "gnn":
+        cfg = arch.make_smoke() if args.smoke else arch.make_config("molecule")
+    else:
+        cfg = arch.make_smoke() if args.smoke else arch.make_config()
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=max(args.steps, 10))
 
     stream = make_stream(arch, cfg, args.smoke)
@@ -94,9 +95,14 @@ def main(argv=None):
         fn = steps_mod.make_lm_train(cfg, opt_cfg, device=device)
         init = lambda: tr.init_params(cfg, seed=0, device=device)
         to_ckpt, locate = _lm_to_ckpt, _lm_locate
-    else:
+    elif arch.family == "recsys":
         fn = steps_mod.make_recsys_train(cfg, opt_cfg, device=device)
         init = lambda: rc.init_params(cfg, seed=0, device=device)
+        to_ckpt, locate = (lambda p, o: (p, o)), None
+    else:  # gnn (make_stream refused the other families)
+        fn = steps_mod.make_gnn_train(arch.arch_id, cfg, opt_cfg, device=device)
+        mod = steps_mod.GNN_MODULES[arch.arch_id]
+        init = lambda: mod.init_params(cfg, seed=0, device=device)
         to_ckpt, locate = (lambda p, o: (p, o)), None
 
     params = init()

@@ -3,3 +3,4 @@
 #   recsys.py       xDeepFM forward and retrieval (K5 retrieval_topk)
 #   nn.py           dense, RMSNorm, RoPE and attention (K6 flash_attention)
 #   transformer.py  the dense decoder: forward, prefill, decode
+#   gnn/            gcn, egnn, nequip, mace and their irreps algebra (no kernel)

@@ -23,11 +23,12 @@ def mlp_init(gen: torch.Generator, dims: list[int], dtype=torch.float32) -> list
     ]
 
 
-def mlp_apply(layers: list[dict], x: torch.Tensor) -> torch.Tensor:
-    """Dense layers with SiLU between them (none after the last)."""
+def mlp_apply(layers: list[dict], x: torch.Tensor, final_act: bool = False) -> torch.Tensor:
+    """Dense layers with SiLU between them, and after the last where
+    ``final_act``."""
     for i, layer in enumerate(layers):
         x = x @ layer["w"].to(x.dtype) + layer["b"].to(x.dtype)
-        if i < len(layers) - 1:
+        if i < len(layers) - 1 or final_act:
             x = F.silu(x)
     return x
 

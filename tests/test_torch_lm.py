@@ -378,8 +378,9 @@ def test_configs_match_jax():
     assert {registry.get_arch(a).family for a in ("knn-index", "xdeepfm", "qwen2.5-3b")} == {
         "knn", "recsys", "lm"}
     assert {registry.get_arch(a).family for a in pairs} == {"lm"}
+    assert registry.get_arch("gcn-cora").family == "gnn"  # ported since the GNN slice
     with pytest.raises(KeyError, match="unknown arch"):
-        registry.get_arch("gcn-cora")
+        registry.get_arch("no-such-arch")
 
 
 def test_init_params_shapes_match_jax():
