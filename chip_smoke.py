@@ -177,13 +177,32 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    steps of its config; then ``launch.train`` in subprocesses: each GNN
    with ``--smoke``, nequip on the full molecule stream, mace resumed from
    step 6; the phase's seconds;
-17. prints one ``{"kernels": [...]}`` line (each entry says which phase its
+17. ``cells``: the cell catalogue. ``python -m repro_torch.launch.dryrun
+   --all`` in a subprocess (beside the card work: it counts on ``meta``)
+   must print 37 ``OK`` lines and write 37 records, each with flops > 0 but
+   the two knn-index cells'; each record's flops, bytes, roofline terms and
+   bottleneck are printed. Then the cells whose steps the dry run's
+   factories added run on the card through ``dryrun.build_cell``, each
+   once warm (under ``op_cost.count()``: its flops and bytes must equal the
+   same cell's count on ``meta``) and once timed with CUDA events, beside
+   the count's roofline terms and the share max(terms) / measured:
+   knn-index ``build_sweep`` at full shape (K1 counted from 0 around the
+   call: one launch; tables ``torch.equal`` to the plain step's; the
+   ``knn_contig`` form equal to the scatter form on contiguous rows),
+   ``serve_batch`` (2^20 queries, equal to a direct row read), xdeepfm
+   ``serve_p99``, ``serve_bulk`` and ``retrieval_cand`` (one K5 launch, ids
+   and scores equal to the plain step's), qwen2.5-3b ``prefill_32k`` and
+   ``decode_32k`` at full width and depth with their batches cut to fit the
+   card (``CELL_CUTS``; 36 K6 launches in the prefill, finite logits, then
+   ``TRAIN_STEPS`` decode steps); the phase's seconds;
+18. prints one ``{"kernels": [...]}`` line (each entry says which phase its
    launch count covers) and, last, ``{"ok": true, "device": {...}}``.
 
 Bounds: ``bound_ms`` is the larger of (bytes the function must move: every
 input byte it needs once, every output byte once) / 3.35 TB/s and (operations)
 / 67 TFLOP/s (H100 SXM data-sheet rates, float32 outside the tensor cores;
-989 TFLOP/s for the bfloat16 attention, which the tensor cores could do),
+989 TFLOP/s for the bfloat16 attention, which the tensor cores could do;
+``repro_torch/launch/op_cost.py`` names them),
 computed from this run's inputs (distinct gathered rows, valid neighbour
 slots, unmasked query-key pairs).
 """
@@ -203,9 +222,14 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_TENSOR_OPS_PER_S = 989e12
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+# the H100 SXM's data-sheet rates, named once for the port
+from repro_torch.launch.op_cost import (  # noqa: E402
+    BF16_OPS_PER_S as BF16_TENSOR_OPS_PER_S,
+    F32_OPS_PER_S,
+    HBM_BYTES_PER_S,
+)
+
 # FP32 lanes of an H100 SXM: 132 SMs x 128
 SM_LANES = 132 * 128
 # K6 against its plain version: |kernel - plain| <= atol + rtol * |plain|.
@@ -3211,6 +3235,226 @@ def gnn(dev, tmp: str) -> dict:
 # ----------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the cell catalogue: the dry run, and the serving cells on the card
+# ---------------------------------------------------------------------------
+
+# qwen2.5-3b's published serving batches do not fit one 80 GB card: at 32 x
+# 32,768 the bf16 KV cache alone is 36 x 2 x 32 x 32,768 x 2 x 128 x 2 B =
+# 38.7 GB, beside ~1.4 GB a sequence a layer of FFN activations and 6.2 GB
+# of parameters, and decode's 128 x 32,768 cache is 155 GB. So prefill runs
+# at batch 8 and decode at cache batch 32, at full width and depth.
+CELL_CUTS = {"prefill_32k": 8, "decode_32k": 32}
+DRYRUN_CELLS = 37
+DRYRUN_TIMEOUT = 600
+
+
+def dryrun_proc(out_dir: str) -> subprocess.Popen:
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                             "--out", out_dir], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+
+
+def dryrun_records(proc: subprocess.Popen, out_dir: str, t0: float) -> dict:
+    """The dry run's 37 records, checked: flops, bytes, terms, bottleneck."""
+    stdout, stderr = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+    lines = stdout.splitlines()
+    require(proc.returncode == 0, f"dryrun --all exited {proc.returncode}:\n{stdout[-3000:]}\n"
+            f"{stderr[-3000:]}")
+    require(sum(line.startswith("OK    ") for line in lines) == DRYRUN_CELLS
+            and not any(line.startswith(("SKIP", "FAIL")) for line in lines),
+            f"dryrun --all printed {len(lines)} lines, not {DRYRUN_CELLS} OK lines")
+    names = sorted(os.listdir(out_dir))
+    require(len(names) == DRYRUN_CELLS, f"dryrun --all wrote {len(names)} records")
+    table = {}
+    for name in names:
+        with open(os.path.join(out_dir, name)) as f:
+            r = json.load(f)
+        flops = r["per_device"]["flops"]
+        require((flops == 0) == (r["arch"] == "knn-index"),
+                f"{r['arch']}/{r['shape']}: {flops} flops counted")
+        require(r["mesh"] == "1xH100" and r["n_chips"] == 1, f"{name}: mesh {r['mesh']}")
+        table[f"{r['arch']}/{r['shape']}"] = {
+            "flops": flops, "bytes": r["per_device"]["hbm_bytes"],
+            "terms_s": r["roofline_terms_s"], "bottleneck": r["bottleneck"],
+            "kernels": {k: v["calls"] for k, v in r["kernels"].items()}}
+    return {"seconds": time.perf_counter() - t0, "records": table}
+
+
+def cut_batch(cell, batch: int):
+    """An LM serving cell with its batch cut to ``batch``, the rest as
+    published: (the cut cell, the published batch)."""
+    from repro_torch.configs.common import ShapeCell
+
+    def specs(cfg):
+        s = dict(cell.specs(cfg))
+        shape, dtype = s["tokens"]
+        s["tokens"] = ((batch, *shape[1:]), dtype)
+        if "cache_batch" in s:
+            s["cache_batch"] = batch
+        return s
+
+    return ShapeCell(cell.kind, specs), cell.specs(None)["tokens"][0][0]
+
+
+def cell_events_ms(fn) -> float:
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def cell_on_card(arch_id: str, shape: str, cell, dev, *, variant=None, use_kernel=True):
+    """Build the cell's step on the card, run it once warm under the count
+    (launches counted from 0 around it) and once timed: (the step, its
+    arguments, the warm call's output, a report)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    arch = get_arch(arch_id)
+    meta = dryrun.count_step(*dryrun.build_cell(arch, shape, cell, variant)[:2])[0]
+    fn, args, _ = dryrun.build_cell(arch, shape, cell, variant, device=dev,
+                                    use_kernel=use_kernel)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()  # ---- this cell's launches are counted from here ----
+    with torch.no_grad():
+        card, out = dryrun.count_step(fn, args)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launches().items() if v}  # ---- read right after ----
+        ms = cell_events_ms(lambda: fn(*args))
+    require((card.flops, card.bytes) == (meta.flops, meta.bytes),
+            f"{arch_id}/{shape}: counted {card.flops} flops, {card.bytes} bytes on the card, "
+            f"{meta.flops}, {meta.bytes} on meta")
+    terms = meta.roofline_terms_s()
+    report = {"ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": launches, "flops": meta.flops, "bytes": meta.bytes,
+              "card_count": [card.flops, card.bytes], "meta_count": [meta.flops, meta.bytes],
+              "roofline_terms_s": terms, "bottleneck": max(terms, key=terms.get),
+              "share": max(terms.values()) / (ms / 1e3)}
+    return fn, args, out, report
+
+
+def cells(dev, tmp: str) -> dict:
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    out: dict = {"phase": "cells", "reduced": {}}
+    dry_dir = os.path.join(tmp, "dryrun")
+    proc = dryrun_proc(dry_dir)
+    try:
+        # knn-index build_sweep: K1, then the plain step on the same tables
+        knn = get_arch("knn-index")
+        build = knn.shapes["build_sweep"]
+        _, args, got, rep = cell_on_card("knn-index", "build_sweep", build, dev)
+        require(rep["launches"] == {"topk_merge": 1},
+                f"build_sweep launched {rep['launches']}, not one topk_merge")
+        # the step writes its tables in place, and the card's ran twice (warm,
+        # timed): so does the plain step, on tables drawn from the same seed
+        fn_p, args_p, _ = dryrun.build_cell(knn, "build_sweep", build, device=dev,
+                                            use_kernel=False)
+        with torch.no_grad():
+            fn_p(*args_p)
+            want = fn_p(*args_p)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                "build_sweep: K1's tables differ from the plain step's")
+        verts = args[0]
+        require(bool((want[0][verts.long()] != -1).any()), "build_sweep: no row merged")
+        del args, got, fn_p, args_p, want
+        torch.cuda.empty_cache()
+        # the contiguous form on rows 0..S-1 against the scatter form there
+        _, args_c, got_c, rep_c = cell_on_card("knn-index", "build_sweep", build, dev,
+                                               variant={"knn_contig": "1"})
+        fn_s, args_s, _ = dryrun.build_cell(knn, "build_sweep", build, device=dev)
+        s = args_s[1].shape[0]
+        rows = torch.arange(s, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            fn_s(rows, *args_s[1:])
+            want_s = fn_s(rows, *args_s[1:])
+        require(torch.equal(got_c[0], want_s[0]) and torch.equal(got_c[1], want_s[1]),
+                "build_sweep knn_contig: tables differ from the scatter form's")
+        out["build_sweep"] = {**rep, "rows": int(args_s[5].shape[0]), "level_batch": s,
+                              "knn_contig": rep_c}
+        del args_c, got_c, fn_s, args_s, want_s
+        torch.cuda.empty_cache()
+        # serve_batch: 2^20 queries
+        _, args, got, rep = cell_on_card("knn-index", "serve_batch", knn.shapes["serve_batch"],
+                                         dev)
+        q = args[2].long()
+        require(torch.equal(got[0], torch.index_select(args[0], 0, q))
+                and torch.equal(got[1], torch.index_select(args[1], 0, q)),
+                "serve_batch differs from a direct row read")
+        out["serve_batch"] = {**rep, "queries": int(q.numel())}
+        del args, got, q
+        torch.cuda.empty_cache()
+        # xdeepfm's three serving cells
+        rec = get_arch("xdeepfm")
+        for shape in ("serve_p99", "serve_bulk"):
+            _, args, logits, rep = cell_on_card("xdeepfm", shape, rec.shapes[shape], dev)
+            b = args[1]["sparse_ids"].shape[0]
+            require(tuple(logits.shape) == (b,) and bool(torch.isfinite(logits).all()),
+                    f"xdeepfm {shape}: bad logits")
+            out[shape] = {**rep, "batch": b}
+            del args, logits
+        cand = rec.shapes["retrieval_cand"]
+        _, args, got, rep = cell_on_card("xdeepfm", "retrieval_cand", cand, dev)
+        require(rep["launches"] == {"retrieval_topk": 1},
+                f"retrieval_cand launched {rep['launches']}, not one retrieval_topk")
+        fn_p, args_p, _ = dryrun.build_cell(rec, "retrieval_cand", cand, device=dev,
+                                            use_kernel=False)
+        with torch.no_grad():
+            want = fn_p(*args_p)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                "retrieval_cand: K5's ids and scores differ from the plain step's")
+        out["retrieval_cand"] = {**rep, "k": int(got[0].shape[1])}
+        del args, got, fn_p, args_p, want
+        torch.cuda.empty_cache()
+        # qwen2.5-3b at full width and depth, batches cut (CELL_CUTS)
+        lm = get_arch("qwen2.5-3b")
+        cfg = lm.make_config()
+        prefill, published = cut_batch(lm.shapes["prefill_32k"], CELL_CUTS["prefill_32k"])
+        out["reduced"]["prefill_32k"] = {"batch": {"published": published,
+                                                   "run": CELL_CUTS["prefill_32k"]}}
+        _, args, (logits, cache), rep = cell_on_card("qwen2.5-3b", "prefill_32k", prefill, dev)
+        require(rep["launches"] == {"flash_attention": cfg.n_layers},
+                f"prefill_32k launched {rep['launches']}, not {cfg.n_layers} flash_attention")
+        require(tuple(logits.shape) == (CELL_CUTS["prefill_32k"], cfg.vocab)
+                and bool(torch.isfinite(logits).all()), "prefill_32k: logits not finite")
+        out["prefill_32k"] = {**rep, "batch": CELL_CUTS["prefill_32k"]}
+        del args, logits, cache
+        torch.cuda.empty_cache()
+        decode, published = cut_batch(lm.shapes["decode_32k"], CELL_CUTS["decode_32k"])
+        out["reduced"]["decode_32k"] = {"cache_batch": {"published": published,
+                                                        "run": CELL_CUTS["decode_32k"]}}
+        fn, args, (logits, cache), rep = cell_on_card("qwen2.5-3b", "decode_32k", decode, dev)
+        step_ms = []
+        with torch.no_grad():
+            for _ in range(TRAIN_STEPS):
+                tok, res = logits.argmax(-1).to(torch.int32), []
+                step_ms.append(cell_events_ms(lambda: res.append(fn(args[0], cache, tok))))
+                logits, cache = res[0]
+        require(bool(torch.isfinite(logits).all()) and cache["len"] == 2 + TRAIN_STEPS,
+                f"decode_32k: logits not finite or cache at {cache['len']}")
+        out["decode_32k"] = {**rep, "cache_batch": CELL_CUTS["decode_32k"], "step_ms": step_ms}
+        del fn, args, logits, cache
+        torch.cuda.empty_cache()
+        out["card_s"] = time.perf_counter() - t_phase
+        out["dryrun"] = dryrun_records(proc, dry_dir, t_phase)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--grid", type=int, default=MAIN_GRID, help="road-network side of the main path")
@@ -3221,7 +3465,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     from repro_torch.analysis import sanitize
     from repro_torch.configs.knn_index import make_config
     from repro_torch.kernels import _build
@@ -3287,6 +3530,9 @@ def main() -> int:
     say(train_out)
     torch.cuda.empty_cache()
     say(gnn(dev, tmp))
+    torch.cuda.empty_cache()
+    cells_out = cells(dev, tmp)
+    say(cells_out)
     shutil.rmtree(tmp)
     # the MoE and newer-LM work: K6 at their head layouts, the lm_archs phase,
     # granite's training, checkpoint and launch.train resume
@@ -3321,8 +3567,9 @@ def main() -> int:
     # their phase, under launches_sharded)
     phases = {name: ["main_path", "sharded"]
               for name in ("topk_merge", "sweep_merge", "sweep_merge_levels", "frontier_relax")}
-    phases.update(minplus=["certify", "cli"], retrieval_topk=["recsys"],
-                  flash_attention=["lm", "lm_archs", "train"])
+    phases.update(minplus=["certify", "cli"], retrieval_topk=["recsys", "cells"],
+                  flash_attention=["lm", "lm_archs", "train", "cells"])
+    phases["topk_merge"].append("cells")
     counted["minplus"] = ("certify", cert["launches"]["minplus"], results["minplus"])
     counted["retrieval_topk"] = ("recsys", rec["launches"]["retrieval_topk"],
                                  results["retrieval_topk"])
@@ -3332,12 +3579,24 @@ def main() -> int:
          "launches_lm": lm_out["serve"]["launches"]["flash_attention"],
          "launches_lm_archs": {arch: archs_out[arch]["launches"]["flash_attention"]
                                for arch in ("granite-moe-1b-a400m", "internlm2-20b")}})
+    # the cells phase's launches of K1 (build_sweep, scatter and contiguous
+    # forms), K5 (retrieval_cand) and K6 (prefill_32k)
+    cells_launches = {
+        "topk_merge": {"build_sweep": cells_out["build_sweep"]["launches"]["topk_merge"],
+                       "build_sweep_knn_contig":
+                       cells_out["build_sweep"]["knn_contig"]["launches"]["topk_merge"]},
+        "retrieval_topk": {"retrieval_cand":
+                           cells_out["retrieval_cand"]["launches"]["retrieval_topk"]},
+        "flash_attention": {"prefill_32k":
+                            cells_out["prefill_32k"]["launches"]["flash_attention"]},
+    }
     say({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name.removesuffix('_levels')}.cu",
          "replaces": replaces[name], "launches": counted[name][1],
          "launches_phase": counted[name][0], "phases": phases[name],
          **({"launches_sharded": shard["launches"][name]} if "sharded" in phases[name] else {}),
+         **({"launches_cells": cells_launches[name]} if name in cells_launches else {}),
          **{key: counted[name][2][key] for key in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
             + tuple(key for key in ("dtype_routes", "launches_per_call", "launches_lm",

@@ -16,6 +16,24 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that names the ``meta`` device as its own: ``meta`` has
+    no generator, and a draw made there gives a shape without values."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def generator(device: torch.device, seed: int) -> torch.Generator:
+    """A generator seeded with ``seed`` whose ``device`` is where the draws
+    land: ``device``'s own, or on ``meta`` (the dry run's shapes without
+    values) a CPU one that reports ``meta``."""
+    gen = _MetaGenerator() if device.type == "meta" else torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def synchronize(device) -> None:
     """Wait for the work queued on ``device`` (nothing to wait for on the CPU)."""
     dev = torch.device(device)

@@ -15,6 +15,12 @@ tensors are on (the on-card comparison uses that).
 
 Every kernel launch adds one to ``LAUNCHES[name]``; nothing else does.
 
+Under the op-level count (``launch/op_cost.py``) each of the eight is one op
+(``_entry``): its tensors' bytes and its plain version's matmul FLOPs, its
+body run with the count paused, so the count is the same whichever version
+runs. On ``meta`` tensors (the dry run's) each returns empty outputs of the
+shapes its docstring states and runs nothing.
+
 The remaining functions (``serve_gather``, ``rows_containing``, ``rows_merge``,
 ``rows_purge``, ``rows_purge_merge``, and the sharded engine's ``shard_*`` and
 ``halo_*`` ops) are plain tensor code around ``topk_merge``, as they were plain
@@ -23,10 +29,13 @@ widen to int64 only at the indexing call.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import inspect
 
 import torch
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.kernels import _build, ref
 
@@ -105,6 +114,66 @@ def _stream(device) -> int:
 
 
 # ----------------------------------------------------------------------
+# the kernel entries as the op-level count sees them
+# ----------------------------------------------------------------------
+
+# the op-level counts running (launch/op_cost.count()); an entry reports to
+# each
+COUNTS: list = []
+
+
+def _entry(outputs, flops=None, written=()):
+    """Marks a kernel entry point. ``outputs(a)``: its outputs as empty
+    tensors (``a``: its arguments by name), what it returns on ``meta``;
+    ``flops(a)``: (matmul FLOPs of its plain version, their dtype);
+    ``written``: the arguments it writes in place. Under a count it is one op
+    of every tensor it reads once and every tensor it writes once, its body
+    run with the count paused."""
+    def wrap(fn):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def entry(*args, **kwargs):
+            on_meta = any(isinstance(x, torch.Tensor) and x.is_meta
+                          for x in (*args, *kwargs.values()))
+            if not (COUNTS or on_meta):
+                return fn(*args, **kwargs)
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            a = bound.arguments
+            with contextlib.ExitStack() as paused:
+                for count in COUNTS:
+                    paused.enter_context(count.paused())
+                out = outputs(a) if on_meta else fn(*args, **kwargs)
+            if COUNTS:
+                n, dtype = flops(a) if flops else (0, None)
+                tensors = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+                for count in COUNTS:
+                    count.kernel(fn.__name__, tensors, out, n, dtype,
+                                 [a[name] for name in written])
+            return out
+
+        return entry
+
+    return wrap
+
+
+def _empty(like: torch.Tensor, shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=like.device)
+
+
+def _rows_k(rows_of: str, dtype_of: str | None = None):
+    """Outputs of a K1/K2-style entry: (rows, k) int32 ids and (rows, k)
+    distances in ``a[dtype_of]``'s type (float32 without it)."""
+    def outputs(a):
+        r, k = a[rows_of].shape[0], a["k"]
+        dt = a[dtype_of].dtype if dtype_of else torch.float32
+        return _empty(a[rows_of], (r, k), torch.int32), _empty(a[rows_of], (r, k), dt)
+
+    return outputs
+
+
+# ----------------------------------------------------------------------
 # K1 topk_merge
 # ----------------------------------------------------------------------
 
@@ -128,6 +197,7 @@ def topk_plan(c: int, k: int) -> tuple[int, int]:
     return TOPK_REGS[-1], TOPK_CANDS - k
 
 
+@_entry(_rows_k("cand_ids", "cand_d"))
 def topk_merge(cand_ids: torch.Tensor, cand_d: torch.Tensor, k: int, *, use_kernel: bool = True):
     """Top-k distinct-id merge. cand_ids (B, C) int32 (-1 invalid), cand_d
     (B, C) float32 or float16. Returns ((B, k) int32, (B, k) of cand_d's type).
@@ -180,6 +250,7 @@ def _sweep_group(t: int, k: int, e: int, t_group: int | None) -> int:
     return group if t_group is None else max(1, min(group, t_group))
 
 
+@_entry(_rows_k("nbr"))
 def sweep_merge(
     nbr: torch.Tensor,      # (S, T) int32 neighbour rows, -1 = padded slot
     verts: torch.Tensor,    # (S,) int32 target rows, n (dummy) = padded row
@@ -236,6 +307,7 @@ def sweep_merge(
     return out_ids, out_d
 
 
+@_entry(lambda a: 0, written=("vk_ids", "vk_d"))
 def sweep_merge_levels(
     buckets,                # sequence of (nbr (R, t), w (R, t), verts (R,)), rows level after level
     levels: torch.Tensor,   # (L, 3) int32 rows (bucket, first row, row count), in level order
@@ -340,6 +412,7 @@ def _frontier_checks(dist, kth, src, dev) -> int:
     return b
 
 
+@_entry(lambda a: _empty(a["dist"], (a["nbr"].shape[0], a["dist"].shape[1]), torch.float32))
 def frontier_relax(
     nbr: torch.Tensor,   # (R, T) int32 BNS neighbour ids per receiver, -1 pad
     rows: torch.Tensor,  # (R,) int32 receiver rows, n (dummy) = padding
@@ -387,6 +460,9 @@ def frontier_relax(
     return out
 
 
+@_entry(lambda a: (
+    _empty(a["dist"], (a["rows"].shape[0], a["dist"].shape[1]), torch.float32),
+    _empty(a["dist"], (a["rows"].shape[0],), torch.bool)))
 def frontier_relax_rows(
     nbr_tab: torch.Tensor,  # (n+1, T) int32 bucket table of BNS neighbour ids, -1 pad
     w_tab: torch.Tensor,    # (n+1, T) float32 bucket table of BNS edge weights
@@ -437,6 +513,8 @@ def frontier_relax_rows(
 # ----------------------------------------------------------------------
 
 
+@_entry(lambda a: _empty(a["a"], (a["a"].shape[0], a["b"].shape[1]), a["a"].dtype),
+        flops=lambda a: (2 * a["a"].shape[0] * a["a"].shape[1] * a["b"].shape[1], torch.float32))
 def minplus_matmul(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = True,
                    pairs: torch.Tensor | None = None) -> torch.Tensor:
     """Tropical (min, +) product ``C = A (+,min) B``: (M, K) x (K, N) -> (M, N).
@@ -559,6 +637,8 @@ def _retrieval_buffers(dev, stream: int, rows: int, parts: int, k: int):
     return arrivals, scratch
 
 
+@_entry(lambda a: (_empty(a["scores"], (a["scores"].shape[0], a["k"]), torch.int32),
+                   _empty(a["scores"], (a["scores"].shape[0], a["k"]), a["scores"].dtype)))
 def retrieval_topk(scores: torch.Tensor, k: int, *, use_kernel: bool = True):
     """k largest scores per row and their column indices.
 
@@ -638,6 +718,8 @@ def flash_attention_route(dtype: torch.dtype, head_dim: int) -> tuple[str, int]:
     return ("wgmma", 1) if head_dim == ATTN_WGMMA_HEAD_DIM else ("fma", 2)
 
 
+@_entry(lambda a: torch.empty_like(a["q"]),
+        flops=lambda a: (4 * a["q"].numel() * a["k"].shape[1], a["q"].dtype))
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                     use_kernel: bool = True) -> torch.Tensor:
     """Attention forward: q (B, S, H, D), k and v (B, T, Hkv, D) -> (B, S, H, D).

@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.models.common import mlp_apply, mlp_init, normal
 from repro_torch.models.gnn import common
 
@@ -38,7 +38,7 @@ class EGNNConfig:
 def init_params(cfg: EGNNConfig, *, seed: int = 0, device="cuda") -> dict:
     """Random parameters of the JAX package's shapes and scales, drawn on
     ``device`` from a generator seeded with ``seed``."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = generator(resolve_device(device), seed)
     d, dt = cfg.d_hidden, cfg.param_dtype
     layers = [{"phi_e": mlp_init(gen, [2 * d + 1, d, d], dt),
                "phi_x": mlp_init(gen, [d, d, 1], dt),

@@ -8,7 +8,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.models.common import normal
 from repro_torch.models.gnn import common
 
@@ -28,7 +28,7 @@ class GCNConfig:
 def init_params(cfg: GCNConfig, *, seed: int = 0, device="cuda") -> dict:
     """Random parameters of the JAX package's shapes and scales, drawn on
     ``device`` from a generator seeded with ``seed``."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = generator(resolve_device(device), seed)
     d0 = cfg.d_feat if cfg.d_feat > 0 else cfg.d_hidden
     dims = [d0] + [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.n_classes]
     p = {"layers": [{"w": normal(gen, (a, b), a**-0.5, cfg.param_dtype)}

@@ -15,7 +15,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.models.common import mlp_apply, mlp_init, normal
 from repro_torch.models.gnn import common, irreps
 
@@ -43,7 +43,7 @@ def _paths(cfg):
 def init_params(cfg: MACEConfig, *, seed: int = 0, device="cuda") -> dict:
     """Random parameters of the JAX package's shapes and scales, drawn on
     ``device`` from a generator seeded with ``seed``."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = generator(resolve_device(device), seed)
     c, dt = cfg.d_hidden, cfg.param_dtype
     paths = _paths(cfg)
     ls = range(cfg.l_max + 1)

@@ -13,7 +13,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.models.common import mlp_apply, mlp_init, normal
 from repro_torch.models.gnn import common, irreps
 
@@ -41,7 +41,7 @@ def init_params(cfg: NequIPConfig, *, seed: int = 0, device="cuda") -> dict:
     """Random parameters of the JAX package's shapes and scales (``lin_msg``
     and ``lin_self`` keyed "0", "1", ...), drawn on ``device`` from a
     generator seeded with ``seed``."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = generator(resolve_device(device), seed)
     c, dt = cfg.d_hidden, cfg.param_dtype
     lin = lambda: {str(l): normal(gen, (c, c), c**-0.5, dt) for l in range(cfg.l_max + 1)}
     layers = [{"radial": mlp_init(gen, [cfg.n_rbf, 32, len(_paths(cfg)) * c], dt),

@@ -85,8 +85,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     Differentiable: on the card the forward is K6 and the backward
     differentiates the plain attention (``_KernelAttention``); on the CPU, or
     with ``use_kernel=False``, the whole of it is the plain attention under
-    autograd."""
-    if q.is_cuda and use_kernel:
+    autograd. On ``meta`` (the dry run's count) it takes the card's form, so
+    a step counts the card's work there."""
+    if (q.is_cuda or q.is_meta) and use_kernel:
         return _KernelAttention.apply(q, k, v, causal)
     return ops.flash_attention(q, k, v, causal=causal, use_kernel=False)
 

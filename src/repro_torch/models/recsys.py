@@ -16,7 +16,7 @@ import dataclasses
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.device import check_on, resolve_device
+from repro_torch.device import check_on, generator, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.common import mlp_apply, mlp_init, normal, tree_from_numpy
 from repro_torch.tree import tree_map
@@ -69,7 +69,7 @@ def embedding_bag_ragged(table: torch.Tensor, flat_indices: torch.Tensor,
 def init_params(cfg: XDeepFMConfig, *, seed: int = 0, device="cuda") -> dict:
     """Random parameters of the JAX package's shapes and scales, drawn on
     ``device`` from a generator seeded with ``seed``."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = generator(resolve_device(device), seed)
     f, d, dt = cfg.n_sparse, cfg.embed_dim, cfg.param_dtype
     tables = normal(gen, (f, cfg.table_rows, d), 0.01, dt)
     lin_tables = normal(gen, (f, cfg.table_rows), 0.01, dt)

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.analysis import sanitize
-from repro_torch.device import check_on, resolve_device
+from repro_torch.device import check_on, generator, resolve_device
 from repro_torch.models import nn
 from repro_torch.models.common import normal, tree_from_numpy
 from repro_torch.tree import tree_map
@@ -92,7 +92,7 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0, device="cuda") -> dict
     """Random parameters of the JAX package's shapes and scales, drawn on
     ``device`` from a generator seeded with ``seed``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(dev, seed)
     dt = cfg.param_dtype
     d, hd = cfg.d_model, cfg.d_head
 
