@@ -108,19 +108,20 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    subprocess (two launches for its two kernel calls);
 12. ``check_flash_attention``: K6 against its plain version within stated
    tolerances (bf16 also within a per-element bound of its route) on both of
-   its routes (bf16 at D = 128: ``wgmma`` + TMA; float32, and bf16 at
-   D < 128: FMAs on the CUDA cores), at (1, 32768, 16/2, 128) causal bf16, at
-   the prefill shape (4, 2048, 16/2, 128) causal in bf16 and float32, in
-   bf16 at lengths no 128-row tile divides, T > S and S > T, H = Hkv, a
-   two-block grid, no kv rows and one query row, and at every other head dim
-   (8, 16, 32, 64) in both dtypes; times both routes and, beside them,
+   its routes (bf16 at D = 64 and 128: ``wgmma`` + TMA; float32, and bf16
+   at D in {8, 16, 32}: FMAs on the CUDA cores), at (1, 32768, 16/2, 128)
+   causal bf16, at the prefill shape (4, 2048, 16/2, 128) causal in bf16 and
+   float32, in bf16 at D = 128 and at D = 64 at lengths no 128-row tile
+   divides, T > S and S > T, H = Hkv, a two-block grid, no kv rows and one
+   query row, and at every other head dim (8, 16, 32, 64) in both dtypes;
+   times both routes and, beside them,
    ``scaled_dot_product_attention(enable_gqa=True)`` (bf16 at 2,048 and
    32,768; D = 64 bf16 and D = 32 float32 at (4, 2048, 16/2)); then at the
    newer LMs' prefill head layouts in bf16, each timed beside SDPA and its
-   plain version: (4, 2048, 16/8, 64) (granite-moe, FMA route) and (4, 2048,
-   40/8 | 48/8 | 64/8, 128) (llama4-scout, internlm2-20b, qwen1.5-110b:
-   ``wgmma`` at GQA groups of 5, 6 and 8); reads the bf16
-   kernel's registers and its HGMMA / UTMALDG count with ``cuobjdump``;
+   plain version: (4, 2048, 16/8, 64) (granite-moe) and (4, 2048, 40/8 |
+   48/8 | 64/8, 128) (llama4-scout, internlm2-20b, qwen1.5-110b), all on
+   ``wgmma``; reads each bf16 ``wgmma`` instantiation's (D = 64, 128)
+   registers, spills and HGMMA / UTMALDG count with ``cuobjdump``;
 13. ``lm``: ``serve --arch qwen2.5-3b --batch 4 --prompt-len 2048 --gen 32``
    in a subprocess (full width, full depth, bf16: 36 K6 launches in its
    prefill, counted by serve.py from 0 just before its timed run), then in
@@ -133,7 +134,8 @@ What it does, in order (any failure exits non-zero; there is no CPU path):
    bf16) in subprocesses, their parameters ``param_count()`` and one K6
    launch a layer in the prefill (24 and 48); granite's prefill once more in
    process with CUDA events around each K6 call and each MoE FFN (their
-   share of the prefill); llama4-scout-17b-a16e and qwen1.5-110b, which do
+   share of the prefill), the host's time to enqueue it, and once more with
+   no events around the calls; llama4-scout-17b-a16e and qwen1.5-110b, which do
    not fit the card whole, at full width and ``REDUCED_DEPTH`` (8 of 48 and
    12 of 80 layers) through ``serve.generate``; granite's two-layer twins
    (float32, bf16) as ``lm``'s; and one full-width granite MoE layer over
@@ -2169,20 +2171,25 @@ def check_flash_attention(dev, results) -> None:
     del f32
     held(qkv(2, 700, 1300, 16, 2, 128, torch.float32), False, "(2, 700/1300, 16/2) non-causal f32")
     held(qkv(1, 513, 513, 8, 8, 128, torch.float32), True, "(1, 513, 8/8, 128) causal f32")
-    # the bf16 route at its edges: lengths no 128-row tile divides, T > S and
-    # S > T, H = Hkv, fewer blocks than SMs, no kv rows, one query row
-    held(qkv(2, 1300, 700, 16, 2, 128, bf16), False, "(2, 1300/700, 16/2) non-causal bf16")
-    held(qkv(2, 700, 1300, 16, 2, 128, bf16), False, "(2, 700/1300, 16/2) non-causal bf16")
-    held(qkv(2, 1300, 700, 16, 2, 128, bf16), True, "(2, 1300/700, 16/2) causal bf16")
-    held(qkv(3, 1000, 1000, 16, 2, 128, bf16), True, "(3, 1000, 16/2) causal bf16")
-    held(qkv(1, 513, 513, 8, 8, 128, bf16), True, "(1, 513, 8/8, 128) causal bf16")
-    held(qkv(1, 128, 128, 2, 1, 128, bf16), True, "(1, 128, 2/1, 128) causal bf16, 2 blocks")
-    held(qkv(2, 5, 0, 2, 1, 128, bf16), False, "(2, 5/0, 2/1) bf16, no kv rows")
-    held(qkv(1, 1, 300, 4, 2, 128, bf16), False, "(1, 1/300, 4/2) non-causal bf16")
-    # every other head dim K6 takes, both dtypes (the CUDA-core route): a
-    # causal grid of 5 query tiles, uneven non-causal lengths with H = Hkv, one
-    # query row; then each dtype's time at the prefill's layout beside SDPA
-    # (D = 64 bf16: granite-moe's head; D = 32 float32: train_lm's lm-15m)
+    # the bf16 wgmma route at its edges, at each of its head dims: lengths no
+    # 128-row tile divides, T > S and S > T, H = Hkv, fewer blocks than SMs,
+    # no kv rows, one query row
+    for hd in ops.ATTN_WGMMA_HEAD_DIM[::-1]:
+        at = "" if hd == 128 else f", D={hd}"
+        held(qkv(2, 1300, 700, 16, 2, hd, bf16), False, f"(2, 1300/700, 16/2) non-causal bf16{at}")
+        held(qkv(2, 700, 1300, 16, 2, hd, bf16), False, f"(2, 700/1300, 16/2) non-causal bf16{at}")
+        held(qkv(2, 1300, 700, 16, 2, hd, bf16), True, f"(2, 1300/700, 16/2) causal bf16{at}")
+        held(qkv(3, 1000, 1000, 16, 2, hd, bf16), True, f"(3, 1000, 16/2) causal bf16{at}")
+        held(qkv(1, 513, 513, 8, 8, hd, bf16), True, f"(1, 513, 8/8, {hd}) causal bf16")
+        held(qkv(1, 128, 128, 2, 1, hd, bf16), True,
+             f"(1, 128, 2/1, {hd}) causal bf16, 2 blocks")
+        held(qkv(2, 5, 0, 2, 1, hd, bf16), False, f"(2, 5/0, 2/1) bf16, no kv rows{at}")
+        held(qkv(1, 1, 300, 4, 2, hd, bf16), False, f"(1, 1/300, 4/2) non-causal bf16{at}")
+    # every other head dim K6 takes, both dtypes (bf16 at D = 64 on wgmma, the
+    # rest on the CUDA cores): a causal grid of 5 query tiles, uneven
+    # non-causal lengths with H = Hkv, one query row; then each dtype's time at
+    # the prefill's layout beside SDPA (D = 64 bf16: granite-moe's head; D =
+    # 32 float32: train_lm's lm-15m)
     for hd in (8, 16, 32, 64):
         for dt in (torch.float32, bf16):
             name = f"D={hd} {str(dt).split('.')[-1]}"
@@ -2215,8 +2222,8 @@ def check_flash_attention(dev, results) -> None:
     flops = 4.0 * b * h * d * attn_pairs(s, s, True)
     nbytes = 2 * (2 * b * s * h * d + 2 * b * s * hkv * d)
     bms, by = bound(nbytes, flops, BF16_TENSOR_OPS_PER_S)
-    # the newer LMs' head layouts at their prefill (batch 4, prompt 2048):
-    # granite-moe on the FMA route, and wgmma at GQA groups of 5, 6 and 8
+    # the newer LMs' head layouts at their prefill (batch 4, prompt 2048), all
+    # on wgmma: granite-moe at D = 64, the others at GQA groups of 5, 6 and 8
     head_layouts, t_layouts = {}, time.perf_counter()
     for model, (h, hkv, hd) in HEAD_LAYOUTS.items():
         case = qkv(4, 2048, 2048, h, hkv, hd, bf16)
@@ -2233,10 +2240,17 @@ def check_flash_attention(dev, results) -> None:
             "bound_ms": lay_bound, "bound_by": lay_by, "tflops": lay_flops / lay_ms / 1e9}
         del case
     head_layouts_s = time.perf_counter() - t_layouts
-    sass = kernel_sass("flash_attention", "attention_wgmma")
-    if sass is not None:  # the bf16 route issues wgmma and loads its tiles by TMA
-        require(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
-                f"flash_attention's bf16 kernel has no wgmma or no TMA load: {sass}")
+    # each instantiation of the bf16 route issues wgmma, loads its tiles by
+    # TMA and keeps its registers (no local memory)
+    sass = {hd: kernel_sass("flash_attention", f"attention_wgmmaILi{hd}E")
+            for hd in ops.ATTN_WGMMA_HEAD_DIM}
+    for hd, found in sass.items():
+        if found is not None:
+            require(found["HGMMA"] > 0 and found["UTMALDG"] > 0,
+                    f"flash_attention's bf16 kernel at D = {hd} has no wgmma or no TMA load: "
+                    f"{found}")
+            require(found.get("local", 0) == 0 and found["LDL"] == 0 and found["STL"] == 0,
+                    f"flash_attention's bf16 kernel at D = {hd} spills: {found}")
     results["flash_attention"] = {
         "shape": {"B": b, "S": s, "T": s, "H": h, "Hkv": hkv, "D": d, "causal": True,
                   "dtype": "bfloat16"},
@@ -2249,7 +2263,7 @@ def check_flash_attention(dev, results) -> None:
         "ms_32k": ms_32k, "tflops_32k": flops_32k / ms_32k / 1e9, "plain_ms_32k": plain_32k,
         "library_ms_32k": library_32k,
         "bound_ms_32k": bound(0, flops_32k, BF16_TENSOR_OPS_PER_S)[0],
-        "sass_bf16": sass,
+        "sass_bf16": sass[128], "sass_bf16_d64": sass[64],
     }
 
 
@@ -2446,7 +2460,10 @@ def prefill_split(cfg, dev) -> dict:
     """One warm prefill of ``cfg`` (full, batch 4 x 2,048, weights from seed
     0) with CUDA events around each K6 call (``nn.attention``) and each MoE
     FFN: the device milliseconds of each beside the prefill's own (events
-    around it, and the host clock to its synchronize)."""
+    around it, the host clock to its synchronize, and the host clock until
+    its last operation was enqueued); then the same prefill with no events
+    around the calls (``unwrapped``). Where ``enqueue_ms`` comes near
+    ``prefill_ms`` the host, not the card, sets the prefill's time."""
     from repro_torch.models import nn as tnn
     from repro_torch.models import transformer as tr
 
@@ -2454,6 +2471,19 @@ def prefill_split(cfg, dev) -> dict:
     prompts = torch.randint(0, cfg.vocab, (4, 2048), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(1))
     tr.prefill(params, prompts, cfg, 2048, device=dev)  # warm
+
+    def timed_prefill() -> dict:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        tr.prefill(params, prompts, cfg, 2048, device=dev)
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+                "prefill_events_ms": start.elapsed_time(end), "enqueue_ms": enqueue_ms}
+
     marks = {"attention": [], "moe_ffn": []}
     inner = {"attention": tnn.attention, "moe_ffn": tr._moe_ffn}
 
@@ -2469,21 +2499,13 @@ def prefill_split(cfg, dev) -> dict:
 
     tnn.attention, tr._moe_ffn = timed("attention"), timed("moe_ffn")
     try:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        tr.prefill(params, prompts, cfg, 2048, device=dev)
-        end.record()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
+        out = timed_prefill()
     finally:
         tnn.attention, tr._moe_ffn = inner["attention"], inner["moe_ffn"]
-    device_ms = start.elapsed_time(end)
-    out = {"prefill_ms": host_ms, "prefill_events_ms": device_ms}
     for name, pairs in marks.items():
         ms = sum(a.elapsed_time(b) for a, b in pairs)
-        out[name] = {"calls": len(pairs), "ms": ms, "share": ms / device_ms}
+        out[name] = {"calls": len(pairs), "ms": ms, "share": ms / out["prefill_events_ms"]}
+    out["unwrapped"] = timed_prefill()
     del params
     torch.cuda.empty_cache()
     return out

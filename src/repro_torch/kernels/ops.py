@@ -693,20 +693,22 @@ def retrieval_topk(scores: torch.Tensor, k: int, *, use_kernel: bool = True):
 # the head dims K6 takes (every model configuration of the repo: 8, 16 and 32
 # in the smoke and example configs, 64 and 128 in the full ones)
 ATTN_HEAD_DIMS = (8, 16, 32, 64, 128)
-# the head dim of the tensor-core route
-ATTN_WGMMA_HEAD_DIM = 128
+# the head dims of the tensor-core route (bf16): 64 (granite-moe) and 128
+ATTN_WGMMA_HEAD_DIM = (64, 128)
 
 
 def flash_attention_route(dtype: torch.dtype, head_dim: int) -> tuple[str, int]:
     """The kernel K6 launches for this dtype and head dim, and its route code
     in the C entry point.
 
-    bfloat16 at D = 128 goes to ``"wgmma"`` (code 1), the tensor cores fed by
-    TMA. float32 at every D (code 0), and bfloat16 at D < 128 (code 2), go to
-    ``"fma"``, float32 FMAs on the CUDA cores: the tensor cores take float32
-    only as TF32, whose 10-bit mantissa breaks the float32 tolerance, and the
-    wgmma kernel's tiles are 128 columns wide. Any other dtype, or a head dim
-    outside ``ATTN_HEAD_DIMS``, raises. No route gives way to another.
+    bfloat16 at D in ``ATTN_WGMMA_HEAD_DIM`` (64, 128) goes to ``"wgmma"``
+    (code 1), the tensor cores fed by TMA, one kernel template over D.
+    float32 at every D (code 0), and bfloat16 at D in {8, 16, 32} (code 2), go
+    to ``"fma"``, float32 FMAs on the CUDA cores: the tensor cores take
+    float32 only as TF32, whose 10-bit mantissa breaks the float32 tolerance,
+    and the wgmma kernel reads rows of at least one 128-byte swizzle atom (64
+    bf16). Any other dtype, or a head dim outside ``ATTN_HEAD_DIMS``, raises.
+    No route gives way to another.
     """
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention: dtype {dtype}, expected float32 or bfloat16")
@@ -715,7 +717,7 @@ def flash_attention_route(dtype: torch.dtype, head_dim: int) -> tuple[str, int]:
                          f"{ATTN_HEAD_DIMS}")
     if dtype == torch.float32:
         return "fma", 0
-    return ("wgmma", 1) if head_dim == ATTN_WGMMA_HEAD_DIM else ("fma", 2)
+    return ("wgmma", 1) if head_dim in ATTN_WGMMA_HEAD_DIM else ("fma", 2)
 
 
 @_entry(lambda a: torch.empty_like(a["q"]),
@@ -732,14 +734,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 
     CUDA kernel: ``csrc/flash_attention.cu`` (replaces ``flash_attention_pallas``),
     one of two by dtype and head dim (``flash_attention_route``). bfloat16 at
-    D = 128: one block per (b, h, 128 query rows), a loader warp bringing Q
-    and 128-row K and V tiles by TMA into a three-stage ring, two warpgroups
-    doing both products with ``wgmma``. float32, and bfloat16 at D < 128: one
-    block per (b, h, 64 query rows), float32 FMAs on 64-row kv tiles. Both
-    keep the running max, sum and accumulator in registers; any S and T, no
-    padding; D in ``ATTN_HEAD_DIMS``. Bound by operations:
-    4*B*H*S*T*D flops (half of it under the causal mask) against the bf16
-    tensor-core rate.
+    D = 64 or 128: one block per (b, h, 128 query rows), a loader warp
+    bringing Q and 128-row K and V tiles by TMA into a three-stage ring (one
+    block an SM at either D), two warpgroups doing both products with
+    ``wgmma``. float32, and bfloat16 at D in {8, 16, 32}:
+    one block per (b, h, 64 query rows), float32 FMAs on 64-row kv tiles.
+    Both keep the running max, sum and accumulator in registers; any S and T,
+    no padding; D in ``ATTN_HEAD_DIMS``. Bound by operations: 4*B*H*S*T*D
+    flops (half of it under the causal mask) against the bf16 tensor-core
+    rate.
     """
     if not (q.is_cuda and use_kernel):
         return ref.flash_attention_ref(q, k, v, causal=causal)

@@ -139,15 +139,20 @@ def test_flash_attention_prefill_heads_uneven_match_jax(s, t, causal, dtype):
                                rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("kv_block", [128, 64])
-def test_flash_attention_ref_kv_block_rounds_as_the_pallas_block(kv_block):
+@pytest.mark.parametrize("h,hkv,d,kv_block", [
+    pytest.param(16, 2, 128, 128, id="128"),
+    pytest.param(16, 2, 128, 64, id="64"),
+    pytest.param(16, 8, 64, 128, id="granite-16/8-D64-128"),
+])
+def test_flash_attention_ref_kv_block_rounds_as_the_pallas_block(h, hkv, d, kv_block):
     """The plain version at ``kv_block`` rounds p against the same running
     max as the Pallas kernel at ``block_k = kv_block`` (bf16, the prefill's
-    head layout): outputs equal but where float32 sums in another order move
-    a bf16 rounding, at most 1e-3 of them, each within half of chip_smoke's
-    per-element bound on the wgmma route (1e-3 + 1.6e-2 |value|), which
-    holds K6 to the plain version at its route's tile."""
-    q, k, v = _qkv(1, 256, 256, 16, 2, 128, 7)
+    head layout (16/2, D = 128) and granite-moe's (16/8, D = 64), both on the
+    wgmma route's tile of 128): outputs equal but where float32 sums in
+    another order move a bf16 rounding, at most 1e-3 of them, each within
+    half of chip_smoke's per-element bound on the wgmma route (1e-3 + 1.6e-2
+    |value|), which holds K6 to the plain version at its route's tile."""
+    q, k, v = _qkv(1, 256, 256, h, hkv, d, 7)
     tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
     jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
     want = np.asarray(jops.flash_attention(jq, jk, jv, causal=True, block_q=128,
@@ -208,7 +213,7 @@ def test_flash_attention_every_head_dim_matches_jax(shape, blocks, d, dtype):
     (torch.float32, 128, ("fma", 0)),
     (torch.float16, 128, TypeError),
     (torch.float64, 128, TypeError),
-    (torch.bfloat16, 64, ("fma", 2)),
+    (torch.bfloat16, 64, ("wgmma", 1)),
     (torch.float32, 256, ValueError),
     *[(torch.float32, d, ("fma", 0)) for d in (8, 16, 32, 64)],
     *[(torch.bfloat16, d, ("fma", 2)) for d in (8, 16, 32)],
@@ -216,9 +221,11 @@ def test_flash_attention_every_head_dim_matches_jax(shape, blocks, d, dtype):
     (torch.float16, 64, TypeError),
 ])
 def test_flash_attention_route(dtype, d, route):
-    """bf16 at D = 128 goes to the tensor-core kernel; float32 at every head
-    dim of ``ATTN_HEAD_DIMS``, and bf16 below 128, to the CUDA-core one; any
-    other dtype or head dim raises rather than falling back."""
+    """bf16 at D = 64 and 128 goes to the tensor-core kernel; float32 at every
+    head dim of ``ATTN_HEAD_DIMS``, and bf16 at D in {8, 16, 32}, to the
+    CUDA-core one; any other dtype or head dim raises rather than falling
+    back."""
+    assert ops.ATTN_WGMMA_HEAD_DIM == (64, 128)
     if isinstance(route, tuple):
         assert ops.flash_attention_route(dtype, d) == route
     else:

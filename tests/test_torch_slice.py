@@ -143,7 +143,8 @@ def test_no_port_source_mentions_a_jax_import():
     files = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(REPO, "tools", name)
         for name in ("k6_planted_faults.py", "k2_k4_planted_faults.py", "build_sweep_ab.py",
-                     "torch_sync_probe.py")]
+                     "torch_sync_probe.py", "k6_variants.py", "k6_against_float64.py",
+                     "granite_prefill.py")]
     for root, _, names in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith((".py", ".cu", ".cuh"))]
     assert len(files) > 15

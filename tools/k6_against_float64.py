@@ -2,8 +2,9 @@
 
     python3 tools/k6_against_float64.py
 
-At (4, 2048, H/Hkv, 128) causal bf16 for the LMs' head layouts (16/2
-qwen2.5-3b, 16/8, 40/8 llama4-scout, 48/8 internlm2-20b, 64/8 qwen1.5-110b),
+At (4, 2048, H/Hkv, D) causal bf16 for the LMs' head layouts (16/2
+qwen2.5-3b, 16/8, 40/8 llama4-scout, 48/8 internlm2-20b, 64/8 qwen1.5-110b at
+D = 128; 16/8 granite-moe-1b-a400m at D = 64),
 on inputs from a seeded generator, computes K6, the plain version with its
 default 1,024-row kv blocks and at the kernel's own kv tile of 128
 (``chip_smoke.attn_plain``), and the attention in float64 from the same bf16
@@ -24,7 +25,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LAYOUTS = ((16, 2), (16, 8), (40, 8), (48, 8), (64, 8))
+LAYOUTS = ((16, 2, 128), (16, 8, 128), (40, 8, 128), (48, 8, 128), (64, 8, 128),
+           (16, 8, 64))
 
 
 def attention_f64(q, k, v):
@@ -59,14 +61,14 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(17)
-    for h, hkv in LAYOUTS:
+    for h, hkv, d in LAYOUTS:
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-                   for shape in ((4, 2048, h, 128), (4, 2048, hkv, 128), (4, 2048, hkv, 128)))
+                   for shape in ((4, 2048, h, d), (4, 2048, hkv, d), (4, 2048, hkv, d)))
         got = ops.flash_attention(q, k, v, causal=True)
         plain = {"plain_1024": ref.flash_attention_ref(q, k, v, causal=True),
                  "plain_tile": cs.attn_plain(q, k, v, causal=True)}
         exact = attention_f64(q, k, v)
-        line = {"layout": f"(4, 2048, {h}/{hkv}, 128) causal bf16"}
+        line = {"layout": f"(4, 2048, {h}/{hkv}, {d}) causal bf16"}
         for name, want in plain.items():
             held = cs.attn_held(got, want, "wgmma")["ulps"]
             line[f"k6_vs_{name}"] = {key: held[key] for key in ("ratio", "outside")}

@@ -6,11 +6,13 @@ For the kernel as it is and for each planted fault, copies ``src/`` and
 touched), and runs in a process of its own, which builds the copy's kernels
 and measures, on the faulted route (both routes for the intact kernel):
 
-- wgmma (bf16 at D = 128): K6 at (4, 2048, 16/2, 128) and (1, 32768,
-  16/2, 128), causal, and the two-layer bf16 twin's prefill logits with K6
-  against those with the plain attention, beside chip_smoke's LOGIT_TOL;
-- fma (bf16 at D < 128): K6 at (4, 2048, 16/2, D) for D = 8, 16, 32, 64 and
-  at (2, 300, 8/2, 8), causal;
+- wgmma (bf16 at D = 64 and 128, one template, so a fault planted there is
+  in both): K6 at (4, 2048, 16/2, 128), (1, 32768, 16/2, 128), (4, 2048,
+  16/2, 64) and granite-moe's (4, 2048, 16/8, 64), causal, and the two-layer
+  bf16 twin's prefill logits with K6 against those with the plain attention,
+  beside chip_smoke's LOGIT_TOL;
+- fma (bf16 at D in {8, 16, 32}): K6 at (4, 2048, 16/2, D) for D = 8, 16,
+  32 and at (2, 300, 8/2, 8), causal;
 
 each against its plain version at the route's kv tile (chip_smoke's
 ``attn_plain``) under chip_smoke's bounds (``attn_held``: ATTN_TOL, and the
@@ -81,8 +83,9 @@ FAULTS = {
 }
 # (batch, length, heads, kv heads, head dim) of each route, causal, bf16
 SHAPES = {
-    "wgmma": ((4, 2048, 16, 2, 128), (1, 32768, 16, 2, 128)),
-    "fma": (*((4, 2048, 16, 2, d) for d in (8, 16, 32, 64)), (2, 300, 8, 2, 8)),
+    "wgmma": ((4, 2048, 16, 2, 128), (1, 32768, 16, 2, 128), (4, 2048, 16, 2, 64),
+              (4, 2048, 16, 8, 64)),
+    "fma": (*((4, 2048, 16, 2, d) for d in (8, 16, 32)), (2, 300, 8, 2, 8)),
 }
 
 
