@@ -9,9 +9,9 @@ counterpart of ``repro.analysis.sanitize``, function for function:
   ``jax.transfer_guard("disallow")``. On a CUDA device an *implicit* crossing
   (``.item()``, ``.cpu()``, a blocking upload, ``torch.nonzero``, a boolean
   mask index) raises, as a ``SanitizerError`` naming the path. The explicit
-  crossings stay legal: they go through ``EngineCore._upload`` and
-  ``EngineCore._readback``, which run inside ``explicit()`` and are the only
-  code that lifts the mode. The engines guard their query and device-flush
+  crossings stay legal: they go through ``upload`` (``EngineCore._upload``)
+  and ``EngineCore._readback``, which run inside ``explicit()`` and are the
+  only code that lifts the mode. The engines guard their query and device-flush
   paths when ``REPRO_SANITIZE=1``. Torch's mode acts on CUDA work only: on
   CPU tensors nothing syncs and nothing raises, so only a run on the card
   shows the guard firing.
@@ -45,6 +45,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.errors import SanitizerError
 
 # the message of torch's RuntimeError under sync debug mode "error"
@@ -150,11 +151,23 @@ def count_transfers():
 @contextlib.contextmanager
 def explicit(direction: str):
     """One explicit crossing (``"h2d"`` or ``"d2h"``): counted, and run with
-    the sync guard lifted. Only the engines' two helpers enter it."""
+    the sync guard lifted. Only ``upload`` and the engines' ``_readback``
+    enter it."""
     for counter in _COUNTERS:
         setattr(counter, direction, getattr(counter, direction) + 1)
     with _sync_mode(0):
         yield
+
+
+def upload(x: np.ndarray, device) -> torch.Tensor:
+    """The port's host -> device crossing (``EngineCore._upload``,
+    ``construct.object_extras``): ``x`` on ``device``, counted as ``h2d``
+    here and as ``h2d_bytes`` in the outermost program span, inside a
+    ``repro_torch.upload`` span (``repro_torch.trace``)."""
+    with trace.span("repro_torch.upload"), explicit("h2d"):
+        x = np.ascontiguousarray(x)
+        trace.count("h2d_bytes", x.nbytes)
+        return torch.from_numpy(x).to(device)
 
 
 # ---------------------------------------------------------------------------

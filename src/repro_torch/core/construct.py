@@ -40,6 +40,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import trace
+from repro_torch.analysis import sanitize
 from repro_torch.core.bngraph import BNGraph
 from repro_torch.core.index import KNNIndex
 from repro_torch.device import resolve_device
@@ -189,12 +191,13 @@ def run_sweep(
     on device; the whole sweep is one launch.
     """
     dev = extra_ids.device
-    vk_ids = torch.full((plan.n + 1, k), -1, dtype=torch.int32, device=dev)
-    vk_d = torch.full((plan.n + 1, k), float("inf"), dtype=torch.float32, device=dev)
-    ops.sweep_merge_levels(
-        [(b.nbr, b.w, b.verts) for b in plan.buckets], plan.levels,
-        extra_ids, extra_d, vk_ids, vk_d, k, use_kernel=use_kernel,
-    )
+    with trace.span(f"repro_torch.run_sweep.{plan.direction}"):
+        vk_ids = torch.full((plan.n + 1, k), -1, dtype=torch.int32, device=dev)
+        vk_d = torch.full((plan.n + 1, k), float("inf"), dtype=torch.float32, device=dev)
+        ops.sweep_merge_levels(
+            [(b.nbr, b.w, b.verts) for b in plan.buckets], plan.levels,
+            extra_ids, extra_d, vk_ids, vk_d, k, use_kernel=use_kernel,
+        )
     return vk_ids, vk_d
 
 
@@ -204,13 +207,14 @@ def object_extras(n: int, objects: np.ndarray, k: int, *, device="cuda"):
     Padded to E = k columns so both sweeps see the same extra shapes.
     """
     dev = resolve_device(device)
-    is_obj = np.zeros(n, dtype=bool)
-    is_obj[objects] = True
-    ex_ids = np.full((n + 1, k), -1, np.int32)
-    ex_ids[:n, 0] = np.where(is_obj, np.arange(n, dtype=np.int32), -1)
-    ex_d = np.full((n + 1, k), _INF, np.float32)
-    ex_d[:n, 0] = np.where(is_obj, np.float32(0), _INF)
-    return torch.from_numpy(ex_ids).to(dev), torch.from_numpy(ex_d).to(dev)
+    with trace.span("repro_torch.object_extras"):
+        is_obj = np.zeros(n, dtype=bool)
+        is_obj[objects] = True
+        ex_ids = np.full((n + 1, k), -1, np.int32)
+        ex_ids[:n, 0] = np.where(is_obj, np.arange(n, dtype=np.int32), -1)
+        ex_d = np.full((n + 1, k), _INF, np.float32)
+        ex_d[:n, 0] = np.where(is_obj, np.float32(0), _INF)
+        return sanitize.upload(ex_ids, dev), sanitize.upload(ex_d, dev)
 
 
 def build_knn_tables(
@@ -238,21 +242,22 @@ def build_knn_tables(
     range plus one dummy row) by one gather on the device, with no host
     readback (``repro_torch.core.sharded.shard_tables``).
     """
-    dev = resolve_device(device)
-    ex_ids, ex_d = object_extras(bn.n, objects, k, device=dev)
-    plan_up, plan_down = plans or (
-        prepare_sweep(bn, "up", device=dev),
-        prepare_sweep(bn, "down", device=dev),
-    )
-    # bottom-up: V_k^< (Lemma 5.12)
-    vkl_ids, vkl_d = run_sweep(plan_up, ex_ids, ex_d, k, use_kernel=use_kernel)
-    # top-down: V_k (Lemma 5.21), extras = own V_k^< rows, still on device
-    vk_ids, vk_d = run_sweep(plan_down, vkl_ids, vkl_d, k, use_kernel=use_kernel)
-    if shards is None:
-        return vk_ids, vk_d
-    from repro_torch.core.sharded import shard_tables
+    with trace.span("repro_torch.build_knn_tables"):
+        dev = resolve_device(device)
+        ex_ids, ex_d = object_extras(bn.n, objects, k, device=dev)
+        plan_up, plan_down = plans or (
+            prepare_sweep(bn, "up", device=dev),
+            prepare_sweep(bn, "down", device=dev),
+        )
+        # bottom-up: V_k^< (Lemma 5.12)
+        vkl_ids, vkl_d = run_sweep(plan_up, ex_ids, ex_d, k, use_kernel=use_kernel)
+        # top-down: V_k (Lemma 5.21), extras = own V_k^< rows, still on device
+        vk_ids, vk_d = run_sweep(plan_down, vkl_ids, vkl_d, k, use_kernel=use_kernel)
+        if shards is None:
+            return vk_ids, vk_d
+        from repro_torch.core.sharded import shard_tables
 
-    return shard_tables(vk_ids, vk_d, bn.n, shards, starts=starts)
+        return shard_tables(vk_ids, vk_d, bn.n, shards, starts=starts)
 
 
 def tables_to_index(vk_ids: torch.Tensor, vk_d: torch.Tensor, n: int, k: int) -> KNNIndex:

@@ -105,6 +105,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.analysis import sanitize
 from repro_torch.core.bngraph import BNGraph
 from repro_torch.core.construct import build_knn_tables, tables_to_index
@@ -508,19 +509,21 @@ class EngineCore:
         in progress can neither block the query nor leak it a
         partially-repaired table.
         """
-        us = np.asarray(us, dtype=np.int32)
-        if us.ndim != 1:
-            raise QueryError(f"queries must be a 1-D vertex array, got {us.shape}")
-        epoch_r, snap = self._epochs.resolve(epoch)
-        with sanitize.guard("query"):
-            ks, width = self._ks_array(us.shape[0], k)
-            ids, d = self._gather_batch(us, ks, snap, epoch_r)
-        self._stats["queries_served"] += int(us.shape[0])
-        self._stats["query_batches"] += 1
-        self._stats["last_batch_size"] = int(us.shape[0])
-        if width < self.k:
-            ids, d = ids[:, :width], d[:, :width]
-        return ids, d
+        with trace.span("repro_torch.query_batch"):
+            us = np.asarray(us, dtype=np.int32)
+            if us.ndim != 1:
+                raise QueryError(f"queries must be a 1-D vertex array, got {us.shape}")
+            epoch_r, snap = self._epochs.resolve(epoch)
+            with sanitize.guard("query"):
+                ks, width = self._ks_array(us.shape[0], k)
+                with trace.span("repro_torch.gather_batch"):
+                    ids, d = self._gather_batch(us, ks, snap, epoch_r)
+            self._stats["queries_served"] += int(us.shape[0])
+            self._stats["query_batches"] += 1
+            self._stats["last_batch_size"] = int(us.shape[0])
+            if width < self.k:
+                ids, d = ids[:, :width], d[:, :width]
+            return ids, d
 
     def query_progressive_batch(
         self, us, k=None, *, epoch=None
@@ -615,9 +618,8 @@ class EngineCore:
     def _upload(self, x: np.ndarray) -> torch.Tensor:
         """The explicit host -> device crossing of the guarded paths: the one
         place (with ``_readback``) that may sync under ``sanitize.guard``,
-        counted as ``h2d``."""
-        with sanitize.explicit("h2d"):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        counted as ``h2d`` and in ``h2d_bytes`` (``sanitize.upload``)."""
+        return sanitize.upload(x, self.device)
 
     def _readback(self, x: torch.Tensor) -> np.ndarray:
         """The explicit device -> host crossing of the guarded paths, counted
