@@ -389,16 +389,21 @@ def same_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def random_tables(n: int, cols: int, gen: torch.Generator, dev, id_range: int):
-    """(n+1, cols) id/dist tables: ids in a small range (so neighbours share
-    ids), small integer distances (so ties abound), ~15% invalid entries, and
-    the dummy row (-1, +inf)."""
+    """(n+1, cols) id/dist tables whose rows are as K2 writes them, which its
+    row bound rests on: distinct ids from a small range (so neighbours share
+    ids), small integer distances ascending (so ties abound), invalid
+    entries (-1, +inf) last, seven rows in ten full; the dummy row (-1,
+    +inf)."""
     ids = torch.randint(0, id_range, (n + 1, cols), generator=gen, device=dev, dtype=torch.int32)
+    ids = ids.sort(dim=1).values
     d = torch.randint(0, 64, (n + 1, cols), generator=gen, device=dev).to(torch.float32)
-    bad = torch.rand((n + 1, cols), generator=gen, device=dev) < 0.15
-    ids[bad] = -1
-    d[bad] = float("inf")
-    ids[n] = -1
-    d[n] = float("inf")
+    full = torch.rand(n + 1, generator=gen, device=dev) < 0.7
+    live = torch.where(full, cols, torch.randint(0, cols, (n + 1,), generator=gen, device=dev))
+    bad = torch.arange(cols, device=dev)[None, :] >= live[:, None]
+    bad[:, 1:] |= ids[:, 1:] == ids[:, :-1]  # an id twice in a row: its repeat
+    bad[n] = True
+    d, order = torch.where(bad, float("inf"), d).sort(dim=1)
+    ids = torch.where(bad, -1, ids).gather(1, order)
     return ids, d
 
 
@@ -628,7 +633,11 @@ def check_sweep_levels(cfg, dev, results, ex_ids, ex_d, rng) -> None:
     err = max_abs_err(got[1], want[1])
     del want
     buckets = [(b.nbr, b.w, b.verts) for b in plan.buckets]
-    grid = ops.sweep_merge_levels(buckets, plan.levels, ex_ids, ex_d, *got, k)
+    gathered, kept = ops.sweep_merge_levels(buckets, plan.levels, ex_ids, ex_d, *got, k).tolist()
+    require(gathered == k * (slots + rows) and 0 < kept <= gathered,
+            f"sweep_merge_levels tallied {kept} kept of {gathered} gathered candidates, "
+            f"for {slots} neighbour slots and {rows} rows at k = E = {k}")
+    grid = ops._fn("sweep_merge", "knn_sweep_levels_grid")(k)
     ms = cuda_ms(lambda: ops.sweep_merge_levels(buckets, plan.levels, ex_ids, ex_d, *got, k),
                  reps=3)
     plain_ms = cuda_ms(lambda: ops.sweep_merge_levels(buckets, plan.levels, ex_ids, ex_d, *got,
@@ -642,7 +651,8 @@ def check_sweep_levels(cfg, dev, results, ex_ids, ex_d, rng) -> None:
     results["sweep_merge_levels"] = {
         "shape": {"n": n, "levels": plan.num_levels, "rows": rows, "neighbour_slots": slots,
                   "buckets": list(plan.bucket_signature()), "k": k, "E": k},
-        "grid_blocks": grid, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "grid_blocks": grid, "kept_share": kept / gathered, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
         "sass": kernel_sass("sweep_merge", "sweep_levels_kernel"),
     }

@@ -306,16 +306,23 @@ def scan_tables(ids, dists, n: int, *, context: str = "") -> None:
 _TRAP = np.float32(7e7)  # finite, absurd, impossible to produce legally
 
 
+def _distinct_rows(ids: np.ndarray, n: int) -> np.ndarray:
+    """Each row's ids made distinct: its first id and the next ones mod n."""
+    return ((ids[:, :1] + np.arange(ids.shape[1])) % n).astype(np.int32)
+
+
 def poisoned_cases(k: int = 4, seed: int = 0) -> dict:
     """The poisoned inputs of ``check_kernel_aliasing``, as numpy arrays.
 
     ``sweep_merge`` and ``frontier_relax`` are the JAX rail's two cases, drawn
     in the same order from the same generator, so the JAX reference runs on
-    the very arrays. ``sweep_merge_levels``, ``frontier_relax_rows`` and
-    ``rows_purge_merge`` are the port's in-place entries, which the JAX rail
-    has no counterpart of: their trap slots sit where the kernel must not
-    read (pad neighbour slots, rows outside the batch, the dummy row) or must
-    not write (the dummy row, rows outside the batch, the read-only operands).
+    the very arrays, but for K2's table ids: each row's are made distinct
+    from its first, as K2's row bound needs of the rows it reads.
+    ``sweep_merge_levels``, ``frontier_relax_rows`` and ``rows_purge_merge``
+    are the port's in-place entries, which the JAX rail has no counterpart
+    of: their trap slots sit where the kernel must not read (pad neighbour
+    slots, rows outside the batch, the dummy row) or must not write (the
+    dummy row, rows outside the batch, the read-only operands).
     """
     rng = np.random.default_rng(seed)
     trap = _TRAP
@@ -334,7 +341,9 @@ def poisoned_cases(k: int = 4, seed: int = 0) -> dict:
     ex_ids = np.full((n1, e), -1, np.int32)
     ex_ids[: n // 2] = rng.integers(0, n, (n // 2, e), dtype=np.int32)
     ex_d = np.where(ex_ids >= 0, rng.uniform(0, 3, (n1, e)), trap).astype(np.float32)
-    vk_ids = rng.integers(0, n, (n1, k), dtype=np.int32)
+    # the tables' rows as K2 writes them, which its row bound rests on:
+    # distinct ids (consecutive from the drawn first), distances ascending
+    vk_ids = _distinct_rows(rng.integers(0, n, (n1, k), dtype=np.int32), n)
     vk_d = np.sort(rng.uniform(0, 5, (n1, k)), axis=1).astype(np.float32)
     vk_ids[-1] = -1
     vk_d[-1] = trap  # poisoned dummy row: reads of it must be id-masked
@@ -378,7 +387,7 @@ def poisoned_cases(k: int = 4, seed: int = 0) -> dict:
     for x, wx in zip(lv_nbr, lv_w):
         wx[x < 0] = trap
     levels = np.array([[0, 0, 2], [1, 0, 2], [1, 2, 2]], np.int32)
-    lv_vk_ids = rng.integers(0, n, (n1, k), dtype=np.int32)
+    lv_vk_ids = _distinct_rows(rng.integers(0, n, (n1, k), dtype=np.int32), n)
     lv_vk_d = np.sort(rng.uniform(0, 5, (n1, k)), axis=1).astype(np.float32)
     lv_vk_ids[-1] = -1
     lv_vk_d[-1] = trap  # the dummy row: id-masked on read, never written

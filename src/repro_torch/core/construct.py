@@ -194,10 +194,13 @@ def run_sweep(
     with trace.span(f"repro_torch.run_sweep.{plan.direction}"):
         vk_ids = torch.full((plan.n + 1, k), -1, dtype=torch.int32, device=dev)
         vk_d = torch.full((plan.n + 1, k), float("inf"), dtype=torch.float32, device=dev)
-        ops.sweep_merge_levels(
+        tally = ops.sweep_merge_levels(
             [(b.nbr, b.w, b.verts) for b in plan.buckets], plan.levels,
             extra_ids, extra_d, vk_ids, vk_d, k, use_kernel=use_kernel,
         )
+        if tally is not None:  # device words, summed on the device
+            trace.count("k2_gathered", tally[0])
+            trace.count("k2_kept", tally[1])
     return vk_ids, vk_d
 
 

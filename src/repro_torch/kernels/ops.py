@@ -67,7 +67,7 @@ _SIGNATURES = {
     "knn_topk_merge": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "knn_topk_geometry": ([_I], _I),
     "knn_sweep_merge": ([_P] * 9 + [_I] * 5 + [_P], _I),
-    "knn_sweep_levels": ([_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+    "knn_sweep_levels": ([_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P], _I),
     "knn_sweep_levels_grid": ([_I], _I),
     "knn_sweep_group_cap": ([_I, _I], _I),
     "knn_sweep_geometry": ([_I], _I),
@@ -273,11 +273,15 @@ def sweep_merge(
     sweeps, which write in place, are ``sweep_merge_levels``.
 
     CUDA kernel: ``csrc/sweep_merge.cu`` (replaces ``sweep_merge_pallas``).
-    One warp per target row, candidates only ever in registers, no block
-    barrier. Bound by bytes: S*T*8 of schedule, the distinct neighbour rows and
-    S extras rows read, S*k*8 written. Rows whose T*k+E candidates exceed the
-    warp's registers are walked in groups of neighbours, carrying the running
-    k best; ``t_group`` asks for smaller groups (the on-card check does).
+    One warp per target row, candidates only in its registers and its
+    shared memory, no block barrier. Bound by bytes: S*T*8 of schedule, the distinct neighbour rows and
+    S extras rows read, S*k*8 written. A candidate above the row's bound is
+    dropped before the selection rounds, which walk the rest in groups of at
+    most 768, carrying the running k best; ``t_group`` caps a group at
+    ``t_group * k + max(E, k)`` candidates (the on-card check asks for small
+    groups). The tables and extras must hold rows as the kernel writes them:
+    distinct ids, distances ascending, invalid entries last (the bound rests
+    on it; see ``csrc/sweep_merge.cu``).
     """
     if not (vk_ids.is_cuda and use_kernel):
         return ref.sweep_merge_ref(nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d, k)
@@ -307,7 +311,7 @@ def sweep_merge(
     return out_ids, out_d
 
 
-@_entry(lambda a: 0, written=("vk_ids", "vk_d"))
+@_entry(lambda a: None, written=("vk_ids", "vk_d"))
 def sweep_merge_levels(
     buckets,                # sequence of (nbr (R, t), w (R, t), verts (R,)), rows level after level
     levels: torch.Tensor,   # (L, 3) int32 rows (bucket, first row, row count), in level order
@@ -318,12 +322,15 @@ def sweep_merge_levels(
     k: int,
     *,
     use_kernel: bool = True,
-) -> int:
+) -> torch.Tensor | None:
     """A whole construction sweep: for each level in order, the
     ``sweep_merge`` of its rows, stored at rows ``verts`` of the live tables.
     Each level's rows read only rows of earlier levels (the level invariant).
     Padded rows (``verts == n``) are not stored, so the dummy row stays
-    (-1, +inf). Returns the number of blocks launched (0 on the plain path).
+    (-1, +inf). Returns the kernel's tally, a (2,) int64 device tensor: the
+    candidates its warps gathered (k a real neighbour slot, E a row) and
+    those they kept past the rows' bounds, filled when the launch ends and
+    never read here; None on the plain path.
 
     CUDA kernel: ``knn_sweep_levels`` in ``csrc/sweep_merge.cu``, ONE
     cooperative launch of as many blocks as the card holds at once, which walk
@@ -344,7 +351,7 @@ def sweep_merge_levels(
             rows = verts[keep].long()
             vk_ids[rows] = m_ids[keep]
             vk_d[rows] = m_d[keep]
-        return 0
+        return None
     dev = vk_ids.device
     e = ex_ids.shape[1]
     _check("ex_ids", ex_ids, torch.int32, (n1, e), dev)
@@ -366,17 +373,20 @@ def sweep_merge_levels(
     with torch.cuda.device(dev):
         grid = _fn("sweep_merge", "knn_sweep_levels_grid")(k)
         warps = grid * _fn("sweep_merge", "knn_sweep_geometry")(0)
-        # a part (k keys) and a counter for each warp of the grid, the barrier's two words
+        # a part (k keys) and a counter for each warp of the grid, the barrier's
+        # two words, then the tally's two 64-bit words (warps is even: aligned)
         scratch = torch.empty(warps * k, dtype=torch.int64, device=dev)
-        counts = torch.zeros(warps + 2, dtype=torch.int32, device=dev)
+        counts = torch.zeros(warps + 6, dtype=torch.int32, device=dev)
+        tally = counts[warps + 2 :].view(torch.int64)
         code = _fn("sweep_merge", "knn_sweep_levels")(
             levels.data_ptr(), levels.shape[0], table.data_ptr(), ex_ids.data_ptr(),
             ex_d.data_ptr(), vk_ids.data_ptr(), vk_d.data_ptr(), k, e, n1 - 1, grid,
-            scratch.data_ptr(), counts.data_ptr(), counts[-2:].data_ptr(), _stream(dev),
+            scratch.data_ptr(), counts.data_ptr(), counts[warps:].data_ptr(), tally.data_ptr(),
+            _stream(dev),
         )
     if levels.shape[0]:
         _launched("sweep_merge_levels", code)
-    return grid
+    return tally
 
 
 # ----------------------------------------------------------------------

@@ -37,15 +37,19 @@ The spans are the trace's ``user_annotation`` events named ``repro_torch.*``:
 
 Counters: ``h2d_bytes``, the bytes of every host array uploaded, so
 ``last("repro_torch.query_batch")["h2d_bytes"]`` is what the last batch sent
-up. The counters assume one thread drives the spans at a time, as the
-engines are driven.
+up; ``k2_gathered`` and ``k2_kept``, the candidates K2's sweeps gathered and
+kept past their rows' bounds (``run_sweep``, on the card only). A counter
+given a device tensor stays a tensor, summed on the device, so counting
+never waits for the device; ``last`` turns it into an int. The counters
+assume one thread drives the spans at a time, as the engines are driven.
 """
 from __future__ import annotations
 
+import torch
 from torch.autograd import profiler as _profiler
 
-_counts: dict[str, int] | None = None    # the outermost open span's counters
-_last: dict[str, dict[str, int]] = {}
+_counts: dict[str, int | torch.Tensor] | None = None    # the outermost open span's counters
+_last: dict[str, dict[str, int | torch.Tensor]] = {}
 
 
 class span:
@@ -79,14 +83,19 @@ class span:
             _counts = None
 
 
-def count(key: str, n: int) -> None:
+def count(key: str, n: int | torch.Tensor) -> None:
     """Add ``n`` to counter ``key`` of the outermost open span (none open:
-    nothing is kept)."""
+    nothing is kept). A tensor ``n`` (one element) is added as a tensor,
+    never read."""
     if _counts is not None:
-        _counts[key] = _counts.get(key, 0) + int(n)
+        if not isinstance(n, torch.Tensor):
+            n = int(n)
+        prev = _counts.get(key)
+        _counts[key] = n if prev is None else prev + n
 
 
 def last(name: str) -> dict[str, int]:
     """The counters of the last call of the outermost span ``name`` that
-    completed without raising; empty before the first."""
-    return dict(_last.get(name, {}))
+    completed without raising, as ints (a device counter is read here, which
+    waits for the device); empty before the first."""
+    return {key: int(n) for key, n in _last.get(name, {}).items()}

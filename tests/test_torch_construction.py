@@ -255,3 +255,68 @@ def test_pack_sweep_refuses_a_neighbour_past_its_rows_width():
     assert plan.bucket_signature() == (4,)
     np.testing.assert_array_equal(plan.buckets[0].nbr.numpy(), holes)
     np.testing.assert_array_equal(plan.buckets[0].w.numpy(), np.where(holes >= 0, 1.0, np.inf))
+
+
+# ---------------------------------------------------------------------------
+# the premise of K2's row bound (csrc/sweep_merge.cu: row_bound): every list
+# the sweeps read, the extras included, is a row as K2 writes it
+# ---------------------------------------------------------------------------
+
+
+def _rows_as_k2_writes(ids, d, what):
+    """Distinct ids, distances ascending, dead entries (-1, +inf) last."""
+    ids, d = np.asarray(ids), np.asarray(d)
+    live = ids >= 0
+    assert (live[:, 1:] <= live[:, :-1]).all(), f"{what}: a live entry after a dead one"
+    assert np.isinf(d[~live]).all(), f"{what}: a dead entry not at +inf"
+    assert np.isfinite(d[live]).all() and (d[live] >= 0).all(), f"{what}: a live distance"
+    both = live[:, 1:]
+    assert (d[:, 1:][both] >= d[:, :-1][both]).all(), f"{what}: distances not ascending"
+    distinct = np.sort(np.where(live, ids, -1 - np.arange(ids.shape[1])), axis=1)
+    assert (np.diff(distinct, axis=1) != 0).all(), f"{what}: an id twice in a row"
+
+
+@pytest.mark.parametrize("k", [1, 4, 9])
+def test_the_sweeps_extras_and_tables_are_rows_as_k2_writes_them(k, monkeypatch):
+    bn = port_build_bngraph(port_generators.road_network(12, 12, seed=4))
+    objects = port_generators.pick_objects(bn.n, 0.15, seed=2)
+    real, sweeps = construct.ops.sweep_merge_levels, []
+
+    def held(buckets, levels, ex_ids, ex_d, vk_ids, vk_d, k, **kwargs):
+        _rows_as_k2_writes(ex_ids, ex_d, f"extras of sweep {len(sweeps)}")
+        out = real(buckets, levels, ex_ids, ex_d, vk_ids, vk_d, k, **kwargs)
+        _rows_as_k2_writes(vk_ids, vk_d, f"tables of sweep {len(sweeps)}")
+        sweeps.append(k)
+        return out
+
+    monkeypatch.setattr(construct.ops, "sweep_merge_levels", held)
+    construct.build_knn_tables(bn, objects, k, device="cpu")
+    assert sweeps == [k, k]
+
+
+def test_the_repair_rounds_hand_k2_rows_as_it_writes_them(monkeypatch):
+    from repro_torch import knn
+    from repro_torch.core import engine as engine_mod
+
+    bn = port_build_bngraph(port_generators.road_network(10, 10, seed=6))
+    k = 4
+    objects = port_generators.pick_objects(bn.n, 0.2, seed=1)
+    eng = knn.build_engine(bn, objects, k, device="cpu")
+    real, rounds = engine_mod.ops.sweep_merge, []
+
+    def held(nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d, k, **kwargs):
+        _rows_as_k2_writes(ex_ids, ex_d, f"extras of repair round {len(rounds)}")
+        _rows_as_k2_writes(vk_ids, vk_d, f"tables of repair round {len(rounds)}")
+        rounds.append(len(verts))
+        return real(nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d, k, **kwargs)
+
+    monkeypatch.setattr(engine_mod.ops, "sweep_merge", held)
+    rng = np.random.default_rng(3)
+    outside = np.setdiff1d(np.arange(bn.n), objects)
+    for u in rng.choice(objects, 4, replace=False):
+        eng.stage_delete(int(u))
+    for u in rng.choice(outside, 4, replace=False):
+        eng.stage_insert(int(u))
+    eng.stage_move(int(objects[-1]), int(outside[-1]))
+    eng.flush_updates()
+    assert rounds and sum(rounds) > 0

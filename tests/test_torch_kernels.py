@@ -383,6 +383,259 @@ def test_sweep_selection_rounding_tie_goes_to_the_smaller_id():
     np.testing.assert_array_equal(got_d.numpy()[0, :2], [1.0, 1.0])
 
 
+# K2's pruned walk (csrc/sweep_merge.cu), mirrored in numpy on packed keys:
+# a bound from the row's full source lists before any round, each candidate
+# above it dropped as it is gathered, the survivors selected a buffer at a
+# time with the running k best carried on, whose k-th then tightens the bound
+
+
+_INF_BITS = 0x7F800000
+_DEAD = (_INF_BITS << 32) | 0xFFFFFFFF
+
+
+def _keys(ids, d) -> list[int]:
+    """kround.cuh's ``pack_key``: (float32 bits << 32) | id, and the dead key
+    for an id < 0 or a distance that is +inf, NaN or negative (-0.0 is 0)."""
+    bits = (np.asarray(d, np.float32) + np.float32(0)).view(np.uint32).astype(np.int64)
+    ids = np.asarray(ids, np.int64)
+    return [_DEAD if i < 0 or b >= _INF_BITS else (b << 32) | i
+            for i, b in zip(ids.ravel().tolist(), bits.ravel().tolist())]
+
+
+def _dedup_top(keys, k) -> list[int]:
+    """``select_rounds``: the k least keys of distinct ids, then dead keys."""
+    best: dict[int, int] = {}
+    for key in keys:
+        if key < _DEAD:
+            best[key & 0xFFFFFFFF] = min(best.get(key & 0xFFFFFFFF, key), key)
+    top = sorted(best.values())[:k]
+    return top + [_DEAD] * (k - len(top))
+
+
+def _row_bound(nbr_i, w_i, v, case, k, by_key=False) -> int:
+    """``row_bound``: the least k-th distance, + w, of the full lists of the
+    slots given and of the row's extras (the k-th live as stored, w >= 0), as
+    the largest key at it (``by_key``: the k-th's own key, which a rounding
+    tie inside one list breaks)."""
+    _, _, _, ex_ids, ex_d, vk_ids, vk_d = case
+    kths = [_keys([vk_ids[u, k - 1]], [np.float32(wj) + vk_d[u, k - 1]])[0]
+            for u, wj in zip(nbr_i, w_i) if u >= 0 and wj >= 0 and vk_d[u, k - 1] >= 0]
+    if ex_ids.shape[1] >= k:
+        kths += _keys([ex_ids[v, k - 1]], [ex_d[v, k - 1]])
+    least = min(kths, default=_DEAD)
+    if least == _DEAD:
+        return _DEAD - 1
+    return least if by_key else least | 0xFFFFFFFF
+
+
+class _Walk:
+    """``Walk``: candidates come 32 at a time (a warp's lanes, in order),
+    judged against the bound as the batch arrives; the kept ones fill a
+    buffer of ``limit`` keys, selected whenever it is full and once more at
+    the end if it gained keys since."""
+
+    def __init__(self, lim, k, limit):
+        self.lim, self.k, self.limit = lim, k, limit
+        self.buf, self.sel, self.fresh = [], None, True
+        self.gathered = self.kept = 0
+
+    def select(self):
+        self.sel = _dedup_top(self.buf, self.k)
+        self.lim = min(self.lim, self.sel[-1])
+        self.buf = [key for key in self.sel if key < _DEAD]
+        self.fresh = False
+
+    def offer(self, batch):
+        kept = [key for key, _ in batch if key <= self.lim]
+        self.gathered += sum(real for _, real in batch)
+        self.kept += len(kept)
+        for key in kept:
+            if len(self.buf) == self.limit:
+                self.select()
+            self.buf.append(key)
+            self.fresh = True
+
+    def finish(self):
+        if self.fresh:
+            self.select()
+        return self.sel
+
+
+def _walk_part(case, i, k, j0, j1, extras, lim, limit) -> _Walk:
+    """``merge_part``: the row's extras (when ``extras``), then the entries of
+    neighbour slots [j0, j1) in gather order, 32 a batch."""
+    nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d = case
+    v, walk = verts[i], _Walk(lim, k, limit)
+    stream = [(key, True) for key in _keys(ex_ids[v], ex_d[v])] if extras else []
+    for j in range(j0, j1):
+        u = nbr[i, j]
+        stream += ([(key, True) for key in _keys(vk_ids[u], np.float32(w[i, j]) + vk_d[u])]
+                   if u >= 0 else [(_DEAD, False)] * k)
+    n_ex = ex_ids.shape[1] if extras else 0
+    for at in (range(0, n_ex, 32), range(n_ex, len(stream), 32)):
+        for x in at:
+            walk.offer(stream[x : min(x + 32, at.stop)])
+    walk.finish()
+    return walk
+
+
+def _merge_pruned(case, k, *, limit=768, t_part=None, by_key=False):
+    """K2's rows as the kernel walks them: one part of the whole row, or
+    parts of ``t_part`` neighbour slots, each bounded by its own slots' lists
+    and the row's extras, then the parts' k best merged. Returns (ids, d)
+    and the walks."""
+    nbr, verts, w = case[:3]
+    t = nbr.shape[1]
+    step = max(1, t if t_part is None else t_part)
+    out, walks = [], []
+    for i in range(nbr.shape[0]):
+        parts = []
+        for j0 in range(0, max(t, 1), step):
+            j1 = min(t, j0 + step)
+            lim = _row_bound(nbr[i, j0:j1], w[i, j0:j1], verts[i], case, k, by_key)
+            parts.append(_walk_part(case, i, k, j0, j1, j0 == 0, lim, limit))
+        walks += parts
+        out.append(_dedup_top([key for p in parts for key in p.sel], k))
+    keys = np.array(out, np.int64).reshape(len(out), k)
+    dead = keys == _DEAD
+    ids = np.where(dead, -1, keys & 0xFFFFFFFF).astype(np.int32)
+    bits = (keys >> 32).astype(np.uint32)
+    d = np.where(dead, np.inf, bits.view(np.float32)).astype(np.float32)
+    return (ids, d), walks
+
+
+def _selected_whole(case, k):
+    """The full selection under the kernel's key semantics: every candidate of
+    the row, the dead ones (+inf, NaN, negative) made (-1, +inf), merged by
+    ``kround_merge`` with nothing dropped first."""
+    c_ids, c_d = ref.sweep_candidates(*_t(*case))
+    dead = torch.from_numpy(
+        np.array(_keys(c_ids.numpy(), c_d.numpy())).reshape(c_ids.shape) == _DEAD)
+    c_ids[dead] = -1
+    c_d[dead] = np.inf
+    return ref.kround_merge(c_ids, c_d, k)
+
+
+def _table_rows(rng, rows, cols, *, full, dists=12, tail=None):
+    """(rows, cols) lists as K2 writes them: distinct ids (from a range of
+    2 * cols, so lists share ids), distances ascending (integers below
+    ``dists``: ties abound), dead entries last; a share ``full`` of the rows
+    has every entry live. ``tail`` puts ids at that distance in the dead
+    slots in place of (-1, +inf)."""
+    ids = np.argsort(rng.random((rows, 2 * cols)), axis=1)[:, :cols].astype(np.int32)
+    d = np.sort(rng.integers(0, dists, (rows, cols)), axis=1).astype(np.float32)
+    live = np.where(rng.random(rows) < full, cols, rng.integers(0, cols, rows))
+    dead = np.arange(cols)[None, :] >= live[:, None]
+    if tail is None:
+        ids[dead] = -1
+    d[dead] = np.inf if tail is None else tail
+    return ids, d
+
+
+def _pruned_case(seed, *, n=40, chunk=6, t=9, k=5, e=None, full=0.8, dists=12, weights=4):
+    """A sweep step over lists as K2 writes them: about one neighbour slot in
+    n empty, targets never sources, integer weights below ``weights``."""
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(-1, n, size=(chunk, t)).astype(np.int32)
+    verts = rng.choice(n, size=chunk, replace=False).astype(np.int32)
+    nbr[np.isin(nbr, verts)] = -1
+    w = rng.integers(0, weights, (chunk, t)).astype(np.float32)
+    w[nbr < 0] = np.inf
+    ex_ids, ex_d = _table_rows(rng, n + 1, k if e is None else e, full=full, dists=dists)
+    vk_ids, vk_d = _table_rows(rng, n + 1, k, full=full, dists=dists)
+    for x_ids, x_d in ((ex_ids, ex_d), (vk_ids, vk_d)):
+        x_ids[n], x_d[n] = -1, np.inf
+    return nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d
+
+
+def _rounding_tie_case():
+    """One row, one neighbour, whose list 9, 3, 4, 6 at 1e-8 < 2e-8 < 3e-8 <
+    4e-8 lies at 1.0 throughout after + w = 1.0: its k-th key (1.0, id 6)
+    lies below the key (1.0, id 9) that the row selects."""
+    n, k = 8, 4
+    nbr, verts = np.array([[1, -1]], np.int32), np.array([0], np.int32)
+    w = np.array([[1.0, np.inf]], np.float32)
+    vk_ids = np.full((n + 1, k), -1, np.int32)
+    vk_d = np.full((n + 1, k), np.inf, np.float32)
+    vk_ids[1], vk_d[1] = [9, 3, 4, 6], [1e-8, 2e-8, 3e-8, 4e-8]
+    ex_ids, ex_d = np.full((n + 1, 1), -1, np.int32), np.full((n + 1, 1), np.inf, np.float32)
+    return nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d
+
+
+def _poisoned_tail_case(seed):
+    """Dead entries that are not (-1, +inf): lists whose tails hold ids at
+    NaN, -1.0 or +inf, and weights below 0 or NaN on real slots (a list so
+    shifted gives no bound, and its negative sums are dead)."""
+    rng = np.random.default_rng(seed)
+    nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d = _pruned_case(seed, t=12, full=0.5)
+    n = vk_ids.shape[0] - 1
+    for x_ids, x_d in ((ex_ids, ex_d), (vk_ids, vk_d)):
+        for tail in (np.nan, -1.0, np.inf):
+            rows = rng.random(n) < 0.34
+            t_ids, t_d = _table_rows(rng, int(rows.sum()), x_ids.shape[1], full=0.3, tail=tail)
+            x_ids[:n][rows], x_d[:n][rows] = t_ids, t_d
+    odd = (rng.random(w.shape) < 0.2) & (nbr >= 0)
+    w[odd] = rng.choice(np.array([-1.0, -2.5, np.nan], np.float32), size=int(odd.sum()))
+    return nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d
+
+
+def _extras_only_case():
+    nbr, verts, w, *rest = _pruned_case(9, full=0.9)
+    return (np.full_like(nbr, -1), verts, np.full_like(w, np.inf), *rest)
+
+
+# name -> (case, k, walk options); the random cases' lists are as K2 writes them
+_PRUNED = {
+    "one_buffer": (lambda: _pruned_case(0), 5, {}),
+    "small_buffers": (lambda: _pruned_case(1, t=40), 5, {"limit": 15}),
+    "k20_buffers": (lambda: _pruned_case(2, t=12, k=20, n=60), 20, {"limit": 45}),
+    "parts": (lambda: _pruned_case(3, t=40), 5, {"t_part": 7}),
+    "parts_small_buffers": (lambda: _pruned_case(4, t=40), 5, {"t_part": 9, "limit": 12}),
+    "extras_shorter_than_k": (lambda: _pruned_case(5, e=2), 5, {"limit": 15}),
+    "extras_longer_than_k": (lambda: _pruned_case(6, k=3, e=8), 3, {}),
+    "ties_at_theta": (lambda: _pruned_case(7, t=20, dists=2, weights=1), 5, {"limit": 12}),
+    "rounding_tie": (_rounding_tie_case, 4, {}),
+    "lists_short_of_k": (lambda: _pruned_case(8, t=20, full=0.0), 5, {"limit": 15}),
+    "extras_only": (_extras_only_case, 5, {}),
+    "nan_inf_negative": (lambda: _poisoned_tail_case(10), 5, {"limit": 15}),
+    "nan_inf_negative_parts": (lambda: _poisoned_tail_case(11), 5, {"t_part": 5}),
+}
+
+
+@pytest.mark.parametrize("name", list(_PRUNED))
+def test_sweep_pruned_walk_matches_kround_merge(name):
+    make, k, opts = _PRUNED[name]
+    case = make()
+    (ids, d), walks = _merge_pruned(case, k, **opts)
+    _eq((ids, d), _selected_whole(case, k))
+    nbr, verts, w = case[:3]
+    # the kernel's tally: k candidates a real neighbour slot and E a row gathered
+    gathered = sum(wk.gathered for wk in walks)
+    assert gathered == k * int((nbr >= 0).sum()) + case[3].shape[1] * len(verts)
+    assert sum(wk.kept for wk in walks) <= gathered
+    if not (np.isnan(w) | (w < 0)).any() and not np.isnan(case[6]).any():
+        # inside the plain version's own domain: the JAX reference too
+        want = jref.sweep_merge_ref(*_j(*case), k)
+        _eq((ids, d), tuple(np.asarray(x)[verts] for x in want))
+
+
+def test_sweep_pruned_walk_keeps_few_candidates_where_lists_are_full():
+    case = _pruned_case(12, t=40, k=5, full=1.0)
+    (ids, d), walks = _merge_pruned(case, 5, limit=15)
+    _eq((ids, d), _selected_whole(case, 5))
+    live = sum(key < _DEAD for key in _keys(*ref.sweep_candidates(*_t(*case))))
+    assert sum(wk.kept for wk in walks) < live / 4
+
+
+def test_sweep_bound_is_a_distance_not_the_kth_key():
+    # the rounding tie: a bound at the list's k-th key would drop id 9
+    case = _rounding_tie_case()
+    want = _selected_whole(case, 4)
+    np.testing.assert_array_equal(want[0].numpy()[0], [3, 4, 6, 9])
+    _eq(_merge_pruned(case, 4)[0], want)
+    np.testing.assert_array_equal(_merge_pruned(case, 4, by_key=True)[0][0][0], [3, 4, 6, -1])
+
+
 # ---------------------------------------------------------------------------
 # frontier_relax
 # ---------------------------------------------------------------------------

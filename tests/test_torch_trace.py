@@ -131,7 +131,32 @@ def test_a_batch_counts_the_bytes_it_uploads(engine, k):
 
 def test_a_build_counts_its_two_extras_tables(bn, objects):
     construct.build_knn_tables(bn, objects, K, device="cpu")
-    assert trace.last("repro_torch.build_knn_tables")["h2d_bytes"] == 2 * (bn.n + 1) * K * 4
+    # K2's tally is the kernel's: the plain version counts no candidates
+    assert trace.last("repro_torch.build_knn_tables") == {"h2d_bytes": 2 * (bn.n + 1) * K * 4}
+
+
+def _refuse_reads(*args, **kwargs):
+    raise AssertionError("a tensor counter was read before trace.last")
+
+
+def test_a_tensor_counter_stays_a_tensor_until_last(monkeypatch):
+    with monkeypatch.context() as m:
+        for name in ("__int__", "__index__", "__float__", "__bool__", "item", "tolist", "cpu",
+                     "numpy"):
+            m.setattr(torch.Tensor, name, _refuse_reads)
+        with trace.span("repro_torch.outer"):
+            trace.count("k2_gathered", torch.tensor(300, dtype=torch.int64))
+            with trace.span("repro_torch.inner"):
+                trace.count("k2_gathered", torch.tensor(500, dtype=torch.int64))
+                trace.count("k2_kept", torch.tensor(90, dtype=torch.int64))
+            trace.count("h2d_bytes", 3)
+            trace.count("h2d_bytes", np.int64(4))  # ints count as before
+            held = dict(trace._counts)
+    assert isinstance(held["k2_gathered"], torch.Tensor)
+    assert isinstance(held["k2_kept"], torch.Tensor) and held["h2d_bytes"] == 7
+    got = trace.last("repro_torch.outer")
+    assert got == {"k2_gathered": 800, "k2_kept": 90, "h2d_bytes": 7}
+    assert all(type(v) is int for v in got.values())
 
 
 def test_counts_go_to_the_outermost_open_span():
@@ -158,7 +183,8 @@ def test_the_module_is_lint_clean_and_free_of_jax():
     source = open(trace.__file__).read()
     assert not re.search(r"^\s*(import jax|from jax|import repro\b(?!_)|from repro[. ])",
                          source, re.M)
-    # no call in it can wait for the device
+    # no call in it can wait for the device but ``last``'s int() of a device
+    # counter, after the window
     called = {node.func.attr for node in ast.walk(ast.parse(source))
               if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)}
     assert not called & {"synchronize", "item", "cpu", "numpy", "tolist", "to", "cuda"}
