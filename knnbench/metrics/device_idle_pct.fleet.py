@@ -1,0 +1,8 @@
+"""Share of the traced part of a fleet window in which no operation ran on
+the device, in %."""
+
+
+def read(run):
+    if run.kind != "fleet" or run.trace is None or not run.trace.device:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)

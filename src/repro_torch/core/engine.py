@@ -78,10 +78,21 @@ published) and ``"post-swap"`` (published and journal-committed).
 
 Host/device traffic per flush: the update script and affected-row indices go
 up; a changed-row mask per frontier/repair round (which narrows the next
-round's receiver set) and, once the frontier converges, the affected rows'
-distance tiles come back. The k-th-distance column, the checkIns pruning
-bound, never leaves the device. Queries move only the query ids up and the
-(B, k) result tiles stay on the device until the caller reads them.
+round's receiver set) and, once the frontier converges, one count a touched
+row come back. On the scalar engine the affected test and the compaction of
+the (rows x sources) frontier tile into per-row candidate lists run on the
+device, and the lists stay there for the purge + merge. The k-th-distance
+column, the checkIns pruning bound, never leaves the device. Queries move
+only the query ids up and the (B, k) result tiles stay on the device until
+the caller reads them.
+
+Spans and counters (``repro_torch.trace``): ``repro_torch.flush_updates``
+around the whole flush, and inside it ``repro_torch.flush.delete_scan``,
+``.frontier``, ``.purge_merge`` and ``.repair``; its counters are
+``d2h_bytes`` (every ``_readback``), ``frontier_rounds``, ``repair_rounds``,
+``rows_touched`` (the rows the frontier's state touched) and, on the scalar
+engine, ``k3_bytes`` (K3's least bytes over the flush's launches,
+``_k3_least_bytes``).
 
 Sanitizer rail (``repro_torch.analysis.sanitize``): every crossing on the
 query and device-flush paths goes through ``EngineCore._upload`` or
@@ -238,8 +249,11 @@ class EngineCore:
       tentative-distance state for one staged insert batch,
       ``_frontier_part(state, part)`` runs one pruned-relaxation round over a
       receiver-row bucket (returning the new state + changed mask), and
-      ``_frontier_extract(state, rows, src)`` reads back the affected mask
-      and distances for the touched rows.
+      ``_frontier_candidates(state, rows, src)`` turns the converged state
+      into the affected rows' candidate lists; its default reads back the
+      affected mask and distances of the touched rows
+      (``_frontier_extract(state, rows, src)``) and compacts them on the
+      host.
     * ``_table_kth()``: the (n,) k-th-distance column (float64 host array),
       read only by the ``frontier = "host"`` baseline pipeline.
     * ``to_index()``: readback into the host ``KNNIndex`` view.
@@ -623,9 +637,11 @@ class EngineCore:
 
     def _readback(self, x: torch.Tensor) -> np.ndarray:
         """The explicit device -> host crossing of the guarded paths, counted
-        as ``d2h``: ``x`` as a numpy array."""
+        as ``d2h`` and in ``d2h_bytes``: ``x`` as a numpy array."""
         with sanitize.explicit("d2h"):
-            return x.cpu().numpy()
+            out = x.cpu().numpy()
+        trace.count("d2h_bytes", out.nbytes)
+        return out
 
     def _nbr_slice(self, t: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Device (n+1, t) adjacency slice for one width bucket, cached."""
@@ -690,6 +706,14 @@ class EngineCore:
     def _frontier_extract(self, state, rows: np.ndarray, src: np.ndarray):
         raise NotImplementedError
 
+    def _frontier_candidates(self, state, rows: np.ndarray, src: np.ndarray):
+        """The converged frontier's affected rows among the touched ``rows``
+        and their candidate lists, in ``_compact_candidates``' layout. This
+        default reads the (R, B) affected mask and distances back and
+        compacts them on the host."""
+        aff, dvals = self._frontier_extract(state, rows, src)
+        return self._compact_candidates(rows, aff, dvals, src)
+
     def _bucket_parts(self, rows: np.ndarray):
         """Split a row batch by BNS-degree width bucket (8/32/128/tau').
 
@@ -749,11 +773,13 @@ class EngineCore:
         Round r relaxes the BNS edges of every vertex whose tentative distance
         changed in round r-1 (round 1: the sources themselves), pruned on
         device by the live k-th-distance column, the checkIns test
-        ``d < kth[w]``. Only changed-row masks and, after convergence, the
-        affected rows' distance tiles cross the host boundary. Returns
+        ``d < kth[w]``. Only changed-row masks cross the host boundary in the
+        rounds; after convergence ``_frontier_candidates`` gives the affected
+        rows' lists. Returns
         ``(rows, cand_ids, cand_d, rounds)``: the affected rows (sorted) with
         their per-row compacted (inserted object, exact distance) candidate
-        lists, the same contract as the ``frontier = "host"`` pipeline (the
+        lists (host arrays, or device tensors where the layout compacts on
+        the device), the same contract as the ``frontier = "host"`` pipeline (the
         pruned-relaxation fixpoint is schedule-independent, so the Dijkstra
         oracle and these Jacobi rounds land on identical sets and distances).
         """
@@ -777,8 +803,8 @@ class EngineCore:
                 f"checkIns frontier did not reach a fixpoint in {_MAX_REPAIR_ROUNDS} rounds"
             )
         rows = np.unique(np.concatenate(touched)).astype(np.int32)
-        aff, dvals = self._frontier_extract(state, rows, src)
-        return (*self._compact_candidates(rows, aff, dvals, src), rounds)
+        trace.count("rows_touched", rows.size)
+        return (*self._frontier_candidates(state, rows, src), rounds)
 
     def _repair_receivers(self, changed: np.ndarray, rows: np.ndarray) -> np.ndarray:
         """Next repair round's active set: the BNS neighbourhoods of the rows
@@ -828,6 +854,29 @@ class EngineCore:
             taken, np.take_along_axis(dvals, order, axis=1), np.inf
         ).astype(np.float32)
         return rows, cand_ids, cand_d
+
+    def _place_candidates(self, rows: np.ndarray, frows: np.ndarray, fc_ids, fc_d):
+        """The purge + merge batch's (len(rows), P) candidates: the frontier's
+        lists at their rows of the sorted ``rows`` (``frows`` is a subset),
+        (-1, +inf) at every other row; device tensors where the frontier left
+        its lists on the device."""
+        if frows.size == rows.size:
+            return fc_ids, fc_d
+        p = fc_ids.shape[1] if frows.size else 1
+        pos = np.searchsorted(rows, frows)
+        if isinstance(fc_ids, torch.Tensor):
+            cand_ids = torch.full((len(rows), p), -1, dtype=torch.int32, device=fc_ids.device)
+            cand_d = torch.full((len(rows), p), _INF, dtype=torch.float32, device=fc_ids.device)
+            at = self._upload(pos.astype(np.int32)).long()
+            cand_ids[at] = fc_ids
+            cand_d[at] = fc_d
+            return cand_ids, cand_d
+        cand_ids = np.full((len(rows), p), -1, np.int32)
+        cand_d = np.full((len(rows), p), np.inf, np.float32)
+        if frows.size:
+            cand_ids[pos] = fc_ids
+            cand_d[pos] = fc_d
+        return cand_ids, cand_d
 
     def _insert_frontier_host(  # port-lint: disable=PT001(the unguarded baseline: flush_updates guards the device frontier only)
         self, inserts: list[int]
@@ -895,127 +944,128 @@ class EngineCore:
         per-phase wall times land in ``stats()`` as ``t_frontier_s`` /
         ``t_purge_merge_s`` / ``t_repair_s``.
         """
-        t_wall0 = time.perf_counter()
-        staged = len(self._staged)
-        del_set = self._objects - self._pending
-        ins_set = self._pending - self._objects
-        deletes = sorted(del_set)
-        inserts = sorted(ins_set)
-        moves = self._coalesced_moves(del_set, ins_set)
-        n_pure_ins = len(inserts) - len(moves)
-        n_pure_del = len(deletes) - len(moves)
+        with trace.span("repro_torch.flush_updates"):
+            t_wall0 = time.perf_counter()
+            staged = len(self._staged)
+            del_set = self._objects - self._pending
+            ins_set = self._pending - self._objects
+            deletes = sorted(del_set)
+            inserts = sorted(ins_set)
+            moves = self._coalesced_moves(del_set, ins_set)
+            n_pure_ins = len(inserts) - len(moves)
+            n_pure_del = len(deletes) - len(moves)
 
-        # Epoch e+1 is built on a private clone of the epoch-e tables (made at
-        # the first write); the published epoch e keeps its own tensors, so
-        # queries dispatched anywhere in here still read a whole epoch. Any
-        # failure (a device error, or a chaos hook's simulated kill) puts the
-        # working references back on epoch e with the staged queue intact:
-        # the flush is retryable and serving never stops.
-        base = self._epochs.snapshot()
-        # Sanitizer rail: the device flush pipeline runs under the sync guard
-        # (every crossing through _upload / _readback); the "host" frontier
-        # is the measured host baseline, exempt by definition.
-        flush_guard = (
-            sanitize.guard("flush") if self._frontier == "device" else contextlib.nullcontext()
-        )
-        try:
-            with flush_guard:
-                # -- delete side: which rows name a deleted object (device scan) --
-                purged_rows = np.empty(0, np.int32)
-                if deletes:
-                    purged_rows = self._scan_delete_rows(deletes)
+            # Epoch e+1 is built on a private clone of the epoch-e tables (made at
+            # the first write); the published epoch e keeps its own tensors, so
+            # queries dispatched anywhere in here still read a whole epoch. Any
+            # failure (a device error, or a chaos hook's simulated kill) puts the
+            # working references back on epoch e with the staged queue intact:
+            # the flush is retryable and serving never stops.
+            base = self._epochs.snapshot()
+            # Sanitizer rail: the device flush pipeline runs under the sync guard
+            # (every crossing through _upload / _readback); the "host" frontier
+            # is the measured host baseline, exempt by definition.
+            flush_guard = (
+                sanitize.guard("flush") if self._frontier == "device" else contextlib.nullcontext()
+            )
+            try:
+                with flush_guard:
+                    # -- delete side: which rows name a deleted object (device scan) --
+                    purged_rows = np.empty(0, np.int32)
+                    with trace.span("repro_torch.flush.delete_scan"):
+                        if deletes:
+                            purged_rows = self._scan_delete_rows(deletes)
 
-                # -- insert side: batched checkIns frontier, insert-first semantics --
-                # The frontier prunes against the CURRENT (pre-update) k-th bounds,
-                # exactly Algorithm 4 run before Algorithm 5 (the order the scalar
-                # ``move_object`` oracle uses). A row the pruning misses that still
-                # needs a new object in the *final* tables must have had its k-th
-                # distance raised by the deletions, i.e. it lost an entry, so it is
-                # in the purge set and the repair rounds rebuild it from its bridge
-                # neighbours anyway.
-                t0 = time.perf_counter()
-                f_rounds = 0
-                frows = np.empty(0, np.int32)
-                fc_ids = fc_d = None
-                if inserts:
-                    provider = (
-                        self._insert_frontier_host
-                        if self.frontier == "host"
-                        else self._insert_frontier
-                    )
-                    frows, fc_ids, fc_d, f_rounds = provider(inserts)
-                t_frontier = time.perf_counter() - t0
-
-                # -- one fused purge + merge over the union of both row sets --
-                rounds = 0
-                t_purge = t_repair = 0.0
-                if purged_rows.size or frows.size:
+                    # -- insert side: batched checkIns frontier, insert-first semantics --
+                    # The frontier prunes against the CURRENT (pre-update) k-th bounds,
+                    # exactly Algorithm 4 run before Algorithm 5 (the order the scalar
+                    # ``move_object`` oracle uses). A row the pruning misses that still
+                    # needs a new object in the *final* tables must have had its k-th
+                    # distance raised by the deletions, i.e. it lost an entry, so it is
+                    # in the purge set and the repair rounds rebuild it from its bridge
+                    # neighbours anyway.
                     t0 = time.perf_counter()
-                    rows = np.union1d(purged_rows, frows).astype(np.int32)
-                    p = fc_ids.shape[1] if frows.size else 1
-                    cand_ids = np.full((len(rows), p), -1, np.int32)
-                    cand_d = np.full((len(rows), p), np.inf, np.float32)
-                    if frows.size:
-                        pos = np.searchsorted(rows, frows)
-                        cand_ids[pos] = fc_ids
-                        cand_d[pos] = fc_d
-                    self._purge_merge(rows, deletes, cand_ids, cand_d)
-                    t_purge = time.perf_counter() - t0
-                    # -- breadth-first repair of the deletion holes --
-                    if purged_rows.size:
-                        t0 = time.perf_counter()
-                        rounds = self._repair(purged_rows)
-                        t_repair = time.perf_counter() - t0
-                # staged layout changes (repartition-on-flush) ride the same
-                # epoch: the hook re-lays the working tables, so the publish below
-                # swaps tables and layout in one step
-                self._prepare_publish()
-                self._checkpoint("pre-swap")
-        except BaseException:
-            self._restore_tables(base)
-            self._stats["flushes_failed"] += 1
-            raise
+                    f_rounds = 0
+                    frows = np.empty(0, np.int32)
+                    fc_ids = fc_d = None
+                    with trace.span("repro_torch.flush.frontier"):
+                        if inserts:
+                            provider = (
+                                self._insert_frontier_host
+                                if self.frontier == "host"
+                                else self._insert_frontier
+                            )
+                            frows, fc_ids, fc_d, f_rounds = provider(inserts)
+                    t_frontier = time.perf_counter() - t0
 
-        # -- atomic swap: publish epoch e+1, commit the journal segment --
-        self._objects = set(self._pending)
-        self._staged.clear()
-        new_epoch = self.epoch + 1
-        self._publish_epoch(new_epoch)
-        if self._journal is not None:
-            self._journal.commit(new_epoch)
-        self._stats["flushes"] += 1
-        self._stats["inserts_applied"] += n_pure_ins
-        self._stats["deletes_applied"] += n_pure_del
-        self._stats["moves_applied"] += len(moves)
-        self._stats["coalesced"] += staged - (n_pure_ins + n_pure_del + len(moves))
-        self._stats["rows_repaired"] += int(purged_rows.size) + int(frows.size)
-        self._stats["repair_rounds_last"] = rounds
-        self._stats["frontier_rounds_last"] = f_rounds
-        self._stats["t_frontier_s"] += t_frontier
-        self._stats["t_purge_merge_s"] += t_purge
-        self._stats["t_repair_s"] += t_repair
-        result = {
-            "staged": staged,
-            "inserts": n_pure_ins,
-            "deletes": n_pure_del,
-            "moves": len(moves),
-            "coalesced": staged - (n_pure_ins + n_pure_del + len(moves)),
-            "rows_purged": int(purged_rows.size),
-            "rows_merged": int(frows.size),
-            "repair_rounds": rounds,
-            "frontier_rounds": f_rounds,
-        }
-        self._epoch_stats[new_epoch] = {
-            "origin": "flush",
-            "flush": dict(result),
-            "t_wall_s": time.perf_counter() - t_wall0,
-        }
-        self._trim_epoch_stats()
-        self._checkpoint("post-swap")
-        if sanitize.enabled():
-            ids_h, d_h = self._host_tables()
-            sanitize.scan_tables(ids_h, d_h, self.n, context=f"flush -> epoch {new_epoch}")
-        return result
+                    # -- one fused purge + merge over the union of both row sets --
+                    rounds = 0
+                    t_purge = t_repair = 0.0
+                    if purged_rows.size or frows.size:
+                        t0 = time.perf_counter()
+                        with trace.span("repro_torch.flush.purge_merge"):
+                            rows = np.union1d(purged_rows, frows).astype(np.int32)
+                            cand_ids, cand_d = self._place_candidates(rows, frows, fc_ids, fc_d)
+                            self._purge_merge(rows, deletes, cand_ids, cand_d)
+                        t_purge = time.perf_counter() - t0
+                        # -- breadth-first repair of the deletion holes --
+                        if purged_rows.size:
+                            t0 = time.perf_counter()
+                            with trace.span("repro_torch.flush.repair"):
+                                rounds = self._repair(purged_rows)
+                            t_repair = time.perf_counter() - t0
+                    # staged layout changes (repartition-on-flush) ride the same
+                    # epoch: the hook re-lays the working tables, so the publish below
+                    # swaps tables and layout in one step
+                    self._prepare_publish()
+                    self._checkpoint("pre-swap")
+            except BaseException:
+                self._restore_tables(base)
+                self._stats["flushes_failed"] += 1
+                raise
+
+            # -- atomic swap: publish epoch e+1, commit the journal segment --
+            self._objects = set(self._pending)
+            self._staged.clear()
+            new_epoch = self.epoch + 1
+            self._publish_epoch(new_epoch)
+            if self._journal is not None:
+                self._journal.commit(new_epoch)
+            self._stats["flushes"] += 1
+            self._stats["inserts_applied"] += n_pure_ins
+            self._stats["deletes_applied"] += n_pure_del
+            self._stats["moves_applied"] += len(moves)
+            self._stats["coalesced"] += staged - (n_pure_ins + n_pure_del + len(moves))
+            self._stats["rows_repaired"] += int(purged_rows.size) + int(frows.size)
+            self._stats["repair_rounds_last"] = rounds
+            self._stats["frontier_rounds_last"] = f_rounds
+            self._stats["t_frontier_s"] += t_frontier
+            self._stats["t_purge_merge_s"] += t_purge
+            self._stats["t_repair_s"] += t_repair
+            trace.count("frontier_rounds", f_rounds)
+            trace.count("repair_rounds", rounds)
+            result = {
+                "staged": staged,
+                "inserts": n_pure_ins,
+                "deletes": n_pure_del,
+                "moves": len(moves),
+                "coalesced": staged - (n_pure_ins + n_pure_del + len(moves)),
+                "rows_purged": int(purged_rows.size),
+                "rows_merged": int(frows.size),
+                "repair_rounds": rounds,
+                "frontier_rounds": f_rounds,
+            }
+            self._epoch_stats[new_epoch] = {
+                "origin": "flush",
+                "flush": dict(result),
+                "t_wall_s": time.perf_counter() - t_wall0,
+            }
+            self._trim_epoch_stats()
+            self._checkpoint("post-swap")
+            if sanitize.enabled():
+                ids_h, d_h = self._host_tables()
+                sanitize.scan_tables(ids_h, d_h, self.n, context=f"flush -> epoch {new_epoch}")
+            return result
 
     # ------------------------------------------------------------------
     # persistence / stats
@@ -1266,10 +1316,11 @@ class QueryEngine(EngineCore):
         # an empty delete list still needs one id to test against: n is never
         # an object id, so never a hit
         del_arr = np.asarray(deletes if deletes else [self.n], np.int32)
+        cand_ids, cand_d = (x if isinstance(x, torch.Tensor) else self._upload(x)
+                            for x in (cand_ids, cand_d))
         ops.rows_purge_merge(
             self._vk_ids, self._vk_d, self._upload(rows), self._upload(del_arr),
-            self._upload(cand_ids), self._upload(cand_d), self.k,
-            use_kernel=self.use_kernel,
+            cand_ids, cand_d, self.k, use_kernel=self.use_kernel,
         )
 
     def _repair_part(self, part: np.ndarray) -> np.ndarray:
@@ -1294,20 +1345,37 @@ class QueryEngine(EngineCore):
         self._fsrc = self._upload(np.pad(np.asarray(src, np.int32), (0, b - len(src)),
                                          constant_values=-1))
         self._fkth = self._vk_d[:, -1].contiguous()
+        self._fcols = len(src)
         return _frontier_init_prog(self._fsrc, self._vk_ids.shape[0])
 
     def _frontier_part(self, state, part: np.ndarray):
         nbr_tab, w_tab = self._nbr_slice(self._t_bucket(part))
+        rows = self._upload(part)
+        trace.count("k3_bytes", _k3_least_bytes(nbr_tab, rows, self._fcols))
         changed = _frontier_round(
-            nbr_tab, w_tab, self._upload(part), state, self._fkth, self._fsrc,
-            self.use_kernel,
+            nbr_tab, w_tab, rows, state, self._fkth, self._fsrc, self.use_kernel,
         )
         return state, changed
 
-    def _frontier_extract(self, state, rows: np.ndarray, src: np.ndarray):
-        aff, d = _frontier_affected(self._upload(rows), state, self._fkth, self._fsrc)
+    def _frontier_candidates(self, state, rows: np.ndarray, src: np.ndarray):
+        # the affected test and the compaction stay on the device: only each
+        # touched row's count of affected sources comes back (which rows keep
+        # a list, and the width), never the (R, B) tile
         b = len(src)
-        return self._readback(aff[:, :b]), self._readback(d[:, :b])
+        aff, d = _frontier_affected(self._upload(rows), state, self._fkth, self._fsrc)
+        return self._compact_on_device(rows, aff[:, :b], d[:, :b], self._fsrc[:b])
+
+    def _compact_on_device(self, rows: np.ndarray, aff, d, src):
+        """``_compact_candidates`` of the device tile (``aff``, ``d``) with
+        source ids ``src``: the kept rows on the host, their lists on the
+        device."""
+        counts = self._readback(aff.sum(dim=1, dtype=torch.int32))
+        keep = np.flatnonzero(counts).astype(np.int32)
+        if keep.size == 0:
+            return rows[keep], np.empty((0, 1), np.int32), np.empty((0, 1), np.float32)
+        p = _pow2_pad(int(counts.max()), lo=4)
+        cand_ids, cand_d = _compact_rows(aff, d, src, self._upload(keep), p)
+        return rows[keep], cand_ids, cand_d
 
 
 def _frontier_init_prog(src: torch.Tensor, n1: int) -> torch.Tensor:
@@ -1339,11 +1407,43 @@ def _frontier_affected(rows, dist, kth, src):
     """Affected test for the touched rows after convergence: checkIns against
     the k-th column, plus the source rows themselves (Algorithm 4 admits the
     inserted object unconditionally). Returns the (R, B) mask and the distance
-    tile, the only frontier data read back to the host."""
+    tile, on the device."""
     idx = rows.long()
     d = dist[idx]
     aff = (d < kth[idx][:, None]) | (rows[:, None] == src[None, :])
     return aff, d
+
+
+def _compact_rows(aff, d, src, keep, p: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows ``keep`` of the (R, B) affected mask ``aff`` and distance tile
+    ``d`` as (len(keep), p) candidate lists on their device: each row's
+    affected columns first, in column (source) order, as (src[column],
+    distance), then (-1, +inf); ``EngineCore._compact_candidates``' layout.
+    An affected column goes to its rank among its row's affected columns,
+    every other one to a spare column p, which is cut off."""
+    idx = keep.long()
+    aff, d = aff[idx], d[idx]
+    r = aff.shape[0]
+    col = torch.where(aff, aff.cumsum(dim=1) - 1, p)
+    cand_ids = torch.full((r, p + 1), -1, dtype=torch.int32, device=aff.device)
+    cand_ids.scatter_(1, col, src.expand(r, -1))
+    cand_d = torch.full((r, p + 1), _INF, dtype=torch.float32, device=aff.device)
+    cand_d.scatter_(1, col, d)
+    return cand_ids[:, :p].contiguous(), cand_d[:, :p].contiguous()
+
+
+def _k3_least_bytes(nbr_tab, rows, b: int) -> torch.Tensor:
+    """The least bytes of one K3 launch over receivers ``rows`` with ``b``
+    source columns, whatever implements it: each receiver's live neighbour
+    slots once with their weights (8 B a slot), each distinct neighbour's row
+    of the state once and each receiver's row of the result once (4 B a
+    column). A device scalar, so counting never waits for the device."""
+    n1 = nbr_tab.shape[0]
+    nb = nbr_tab[rows.long()].long()
+    live = nb >= 0
+    seen = torch.zeros(n1 + 1, dtype=torch.bool, device=nb.device)
+    seen.index_fill_(0, torch.where(live, nb, n1).reshape(-1), True)
+    return 8 * live.sum() + 4 * b * (seen[:n1].sum() + rows.shape[0])
 
 
 def _repair_round(nbr_tab, w_tab, rows, vk_ids, vk_d, use_kernel: bool) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Spans and counters inside the port, on the profiler's clock.
 
-``span(name)`` marks a stretch of the serving or construction path,
+``span(name)`` marks a stretch of the serving, construction or flush path,
 ``count(key, n)`` adds ``n`` to a counter of the outermost span open at the
 time, and ``last(name)`` gives the counters of the last completed call of
 the outermost span ``name``.
@@ -33,12 +33,22 @@ The spans are the trace's ``user_annotation`` events named ``repro_torch.*``:
 - ``repro_torch.build_knn_tables``: ``construct.build_knn_tables``, the
   whole call; inside it ``repro_torch.object_extras`` (host numpy, then its
   two uploads) and ``repro_torch.run_sweep.up`` / ``.down`` (each sweep's
-  enqueue).
+  enqueue);
+- ``repro_torch.flush_updates``: ``EngineCore.flush_updates``, the whole
+  call; inside it, in order, ``repro_torch.flush.delete_scan``,
+  ``repro_torch.flush.frontier`` (the checkIns rounds and the candidates'
+  compaction), ``repro_torch.flush.purge_merge`` and
+  ``repro_torch.flush.repair``.
 
 Counters: ``h2d_bytes``, the bytes of every host array uploaded, so
 ``last("repro_torch.query_batch")["h2d_bytes"]`` is what the last batch sent
 up; ``k2_gathered`` and ``k2_kept``, the candidates K2's sweeps gathered and
-kept past their rows' bounds (``run_sweep``, on the card only). A counter
+kept past their rows' bounds (``run_sweep``, on the card only);
+``d2h_bytes``, the bytes of every device -> host readback
+(``EngineCore._readback``); and, per flush, ``frontier_rounds``,
+``repair_rounds``, ``rows_touched`` (the rows the checkIns frontier's state
+touched) and ``k3_bytes`` (K3's least bytes over the flush's launches, on
+the scalar engine). A counter
 given a device tensor stays a tensor, summed on the device, so counting
 never waits for the device; ``last`` turns it into an int. The counters
 assume one thread drives the spans at a time, as the engines are driven.

@@ -1,0 +1,229 @@
+"""The scalar engine's flush as a moving fleet drives it, on the CPU.
+
+* The frontier's candidate lists are compacted on the device
+  (``QueryEngine._compact_on_device``) in exactly the layout of the host
+  compaction ``EngineCore._compact_candidates``: empty rows dropped, an
+  all-true row, ties, widths padded past the source count.
+* A flush in which every object moves one street at once leaves tables and
+  stats equal to the JAX engine's after every flush, and no (rows x sources)
+  array crosses to the host in it.
+* The flush's five spans nest in order under a profiler, and its counters
+  hold what the flush did: ``d2h_bytes`` the bytes ``_readback`` returned,
+  the round counts of the stats dict, and ``k3_bytes`` K3's least bytes
+  recounted on the host from the BN-Graph.
+"""
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro.core.bngraph import build_bngraph as jax_build_bngraph
+from repro.core.engine import QueryEngine as JaxEngine
+from repro.core.reference import knn_index_cons_plus as jax_cons_plus
+from repro.graph.generators import pick_objects
+from repro.graph.generators import road_network as jax_road_network
+from repro_torch import trace
+from repro_torch.core.bngraph import bngraph_from_arrays
+from repro_torch.core.engine import EngineCore, QueryEngine
+from repro_torch.graph.generators import road_network
+
+FLUSH = "repro_torch.flush_updates"
+PHASES = ("repro_torch.flush.delete_scan", "repro_torch.flush.frontier",
+          "repro_torch.flush.purge_merge", "repro_torch.flush.repair")
+STATS = ("flushes", "inserts_applied", "deletes_applied", "moves_applied", "coalesced",
+         "rows_repaired", "repair_rounds_last", "frontier_rounds_last")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast under a
+    parallel test run (see tests/test_torch_sharded.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _fleet(grid: int, mu: float, k: int, seed: int = 0):
+    """(road network, JAX engine, port engine) over identical BN-Graph and
+    tables, objects at density ``mu``."""
+    jg = jax_road_network(grid, grid, seed=seed)
+    objects = pick_objects(jg.n, mu, seed=seed)
+    jbn = jax_build_bngraph(jg)
+    bn = bngraph_from_arrays(**{f.name: getattr(jbn, f.name) for f in dataclasses.fields(jbn)})
+    je = JaxEngine.from_index(jax_cons_plus(jbn, objects, k), objects, bn=jbn)
+    ids, d = (np.asarray(t) for t in je.tables)
+    te = QueryEngine.from_tables(ids, d, k, objects, bn=bn, device="cpu")
+    return road_network(grid, grid, seed=seed), je, te
+
+
+def _move_every_object(g, engines, objects: set, rng) -> int:
+    """Each object, in a random order, moves to a free neighbouring vertex
+    (one street), staged on every engine; returns the moves staged."""
+    moved = 0
+    for u in rng.permutation(sorted(objects)).tolist():
+        free = [v for v in g.neighbors(u)[0].tolist() if v not in objects]
+        if not free:
+            continue
+        v = int(rng.choice(free))
+        for eng in engines:
+            eng.stage_move(u, v)
+        objects.discard(u)
+        objects.add(v)
+        moved += 1
+    return moved
+
+
+def _tables_equal(je, te):
+    ji, jd = (np.asarray(t) for t in je.tables)
+    ti, td = (t.numpy() for t in te.tables)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(td, jd)
+
+
+# ---------------------------------------------------------------------------
+# the device compaction
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def small_engine():
+    return _fleet(8, 0.1, 4)[2]
+
+
+def _mask_case(r: int, b: int, density: float, seed: int):
+    rng = np.random.default_rng(seed)
+    aff = rng.random((r, b)) < density
+    aff[0] = False                       # an empty row
+    aff[min(1, r - 1)] = True            # an all-true row
+    # few distinct distances: ties within a row and across rows
+    dvals = rng.integers(0, 4, size=(r, b)).astype(np.float32)
+    dvals[rng.random((r, b)) < 0.1] = np.inf
+    rows = np.sort(rng.choice(10 * r, size=r, replace=False)).astype(np.int32)
+    src = np.sort(rng.choice(10 * r, size=b, replace=False)).astype(np.int32)
+    return rows, aff, dvals, src
+
+
+@pytest.mark.parametrize("r,b,density,seed", [
+    (6, 3, 0.5, 0),      # an all-true row of 3: width 4, past the 3 sources
+    (5, 1, 0.5, 1),      # one source column
+    (40, 37, 0.1, 2),    # an all-true row of 37: width 64
+    (64, 9, 0.9, 3),
+    (33, 130, 0.02, 4),
+    (1, 5, 0.0, 5),      # every row empty
+])
+def test_device_compaction_equals_the_host_compaction(small_engine, r, b, density, seed):
+    rows, aff, dvals, src = _mask_case(r, b, density, seed)
+    want = EngineCore._compact_candidates(rows, aff, dvals, src)
+    got = small_engine._compact_on_device(rows, torch.from_numpy(aff), torch.from_numpy(dvals),
+                                          torch.from_numpy(src))
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[0].dtype == np.int32
+    for g, w in zip(got[1:], want[1:]):
+        g = g.numpy() if isinstance(g, torch.Tensor) else g
+        assert g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# a fleet's flushes against the JAX engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("grid,mu,k", [(12, 0.08, 4), (16, 0.12, 20)])
+def test_every_object_moving_at_once_matches_jax_after_every_flush(grid, mu, k, monkeypatch):
+    g, je, te = _fleet(grid, mu, k, seed=grid)
+    crossed = []
+    real = QueryEngine._readback
+
+    def readback(self, x):
+        crossed.append(tuple(x.shape))
+        return real(self, x)
+    monkeypatch.setattr(QueryEngine, "_readback", readback)
+    objects = set(te.objects.tolist())
+    rng = np.random.default_rng(k)
+    for _ in range(3):
+        staged = _move_every_object(g, (je, te), objects, rng)
+        assert staged >= 0.9 * len(objects)
+        res = te.flush_updates()
+        # a vehicle may enter a vertex another left this tick: the chain
+        # coalesces, so the net moves can be fewer than the staged ones
+        assert res == je.flush_updates() and res["staged"] == staged
+        _tables_equal(je, te)
+        ts, js = te.stats(), je.stats()
+        assert {key: ts[key] for key in STATS} == {key: js[key] for key in STATS}
+    np.testing.assert_array_equal(te.objects, je.objects)
+    # masks and counts only: nothing of (rows x sources) came back
+    assert crossed and all(len(shape) == 1 for shape in crossed)
+
+
+# ---------------------------------------------------------------------------
+# spans and counters
+# ---------------------------------------------------------------------------
+
+
+def _annotations(prof, tmp_path):
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+             and e["name"].startswith(("repro_torch.flush", FLUSH))]
+    return sorted(spans, key=lambda s: (s[1], -s[2]))
+
+
+def _k3_rule(te, parts, b: int) -> int:
+    """K3's least bytes recounted from the packed BNS adjacency."""
+    total = 0
+    for part in parts:
+        deg = te._nbr_deg[part]
+        nbrs = np.concatenate([te._nbr_ids[v, :d] for v, d in zip(part, deg)])
+        total += 8 * int(deg.sum()) + 4 * b * (len(np.unique(nbrs)) + len(part))
+    return total
+
+
+def test_flush_spans_nest_in_order_and_counters_hold_what_it_did(monkeypatch, tmp_path):
+    g, je, te = _fleet(12, 0.08, 4, seed=5)
+    objects = set(te.objects.tolist())
+    _move_every_object(g, (te,), objects, np.random.default_rng(5))
+    returned, parts = [], []
+    real_readback, real_part = QueryEngine._readback, QueryEngine._frontier_part
+
+    def readback(self, x):
+        out = real_readback(self, x)
+        returned.append(out.nbytes)
+        return out
+
+    def part(self, state, rows):
+        parts.append(np.array(rows))
+        return real_part(self, state, rows)
+    monkeypatch.setattr(QueryEngine, "_readback", readback)
+    monkeypatch.setattr(QueryEngine, "_frontier_part", part)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = te.flush_updates()
+    spans = _annotations(prof, tmp_path)
+    assert [s[0] for s in spans] == [FLUSH, *PHASES]
+    outer = spans[0]
+    assert all(outer[1] <= s[1] and s[2] <= outer[2] for s in spans[1:])
+    assert all(a[2] <= b[1] for a, b in zip(spans[1:], spans[2:]))
+    counts = trace.last(FLUSH)
+    assert counts["d2h_bytes"] == sum(returned) > 0
+    assert counts["frontier_rounds"] == res["frontier_rounds"] > 0
+    assert counts["repair_rounds"] == res["repair_rounds"] > 0
+    assert res["rows_merged"] <= counts["rows_touched"] <= te.n
+    b = res["inserts"] + res["moves"]  # the frontier's source columns
+    assert counts["k3_bytes"] == _k3_rule(te, parts, b)
+
+
+def test_a_flush_outside_a_profiler_still_counts():
+    g, je, te = _fleet(8, 0.1, 4, seed=2)
+    objects = set(te.objects.tolist())
+    _move_every_object(g, (te,), objects, np.random.default_rng(2))
+    res = te.flush_updates()
+    counts = trace.last(FLUSH)
+    assert counts["frontier_rounds"] == res["frontier_rounds"]
+    assert set(counts) == {"d2h_bytes", "h2d_bytes", "frontier_rounds", "repair_rounds",
+                           "rows_touched", "k3_bytes"}
