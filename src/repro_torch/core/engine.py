@@ -77,11 +77,15 @@ unless ``engine.checkpoint_hook`` is set. It fires at
 published) and ``"post-swap"`` (published and journal-committed).
 
 Host/device traffic per flush: the update script and affected-row indices go
-up; a changed-row mask per frontier/repair round (which narrows the next
-round's receiver set) and, once the frontier converges, one count a touched
-row come back. On the scalar engine the affected test and the compaction of
-the (rows x sources) frontier tile into per-row candidate lists run on the
-device, and the lists stay there for the purge + merge. The k-th-distance
+up. On the sharded engine a changed-row mask per frontier/repair round part
+comes back (it narrows the next round's receiver set, built on the host);
+the scalar engine builds each round's receiver parts on the device from the
+masks left there (``QueryEngine._receiver_parts``) and reads back only the
+parts' sizes, then the touched-row mask once. Once the frontier converges,
+one count a touched row comes back. On the scalar engine the affected test
+and the compaction of the (rows x sources) frontier tile into per-row
+candidate lists run on the device, and the lists stay there for the purge +
+merge. The k-th-distance
 column, the checkIns pruning bound, never leaves the device. Queries move
 only the query ids up and the (B, k) result tiles stay on the device until
 the caller reads them.
@@ -92,7 +96,9 @@ around the whole flush, and inside it ``repro_torch.flush.delete_scan``,
 ``d2h_bytes`` (every ``_readback``), ``frontier_rounds``, ``repair_rounds``,
 ``rows_touched`` (the rows the frontier's state touched) and, on the scalar
 engine, ``k3_bytes`` (K3's least bytes over the flush's launches,
-``_k3_least_bytes``).
+``_k3_least_bytes``) and ``receiver_rows`` (the rows of every receiver set
+built on the device: each frontier round's, and each repair round's after
+the first, which is the purged rows).
 
 Sanitizer rail (``repro_torch.analysis.sanitize``): every crossing on the
 query and device-flush paths goes through ``EngineCore._upload`` or
@@ -256,6 +262,12 @@ class EngineCore:
       host.
     * ``_table_kth()``: the (n,) k-th-distance column (float64 host array),
       read only by the ``frontier = "host"`` baseline pipeline.
+
+    ``_repair`` and ``_insert_frontier`` are the round loops, building each
+    round's receiver set on the host (``_repair_receivers``,
+    ``_expand_receivers``) and splitting it by ``_bucket_parts``; the sharded
+    engine runs them. ``QueryEngine`` overrides both with loops that build
+    the sets on the device, and its part hooks take device rows.
     * ``to_index()``: readback into the host ``KNNIndex`` view.
     """
 
@@ -714,6 +726,12 @@ class EngineCore:
         aff, dvals = self._frontier_extract(state, rows, src)
         return self._compact_candidates(rows, aff, dvals, src)
 
+    def _bucket_widths(self) -> list[int]:
+        """The width buckets of ``_bucket_parts``: 8, 32 and 128 where they
+        are below tau', then tau'."""
+        cap = self._nbr_ids.shape[1]
+        return [b for b in (8, 32, 128) if b < cap] + [cap]
+
     def _bucket_parts(self, rows: np.ndarray):
         """Split a row batch by BNS-degree width bucket (8/32/128/tau').
 
@@ -724,9 +742,8 @@ class EngineCore:
         round trajectory.
         """
         deg = self._nbr_deg[rows]
-        cap = self._nbr_ids.shape[1]
         prev = 0
-        for t in [b for b in (8, 32, 128) if b < cap] + [cap]:
+        for t in self._bucket_widths():
             part = rows[(deg > prev) & (deg <= t)]
             prev = t
             if part.size:
@@ -1200,6 +1217,7 @@ class QueryEngine(EngineCore):
         self.n, self._vk_ids, self._vk_d = self.normalize_tables(
             ids, dists, k, bn, self.device
         )
+        self._bucket_of: torch.Tensor | None = None  # see _receiver_tables
         super().__init__(k, objects, bn=bn, use_kernel=use_kernel)
 
     # ------------------------------------------------------------------
@@ -1323,13 +1341,154 @@ class QueryEngine(EngineCore):
             cand_ids, cand_d, self.k, use_kernel=self.use_kernel,
         )
 
-    def _repair_part(self, part: np.ndarray) -> np.ndarray:
+    # the flush's round loops: each round's receiver set is built on the
+    # card from the parts that ran and the changed masks they left there,
+    # and split into ``_bucket_parts``' parts there. Per round one readback
+    # of the bucket sizes (at most 4 int32) crosses; no part goes up, no
+    # mask comes back. The sharded engine keeps EngineCore's host loops. A
+    # part runs at its bucket's width (8, 32, 128, tau'), where
+    # ``_t_bucket`` would give a last-bucket part 512 if tau' > 512 and none
+    # of its rows is wider: K2 and K3 skip padded slots, so only the slice
+    # they read differs.
+
+    def _receiver_tables(self) -> None:
+        """Bind the receiver split's device tables once per engine: each
+        vertex's ``_bucket_parts`` bucket (degree-0 rows, the dummy row n and
+        the spare slot n+1 in none, index ``len(widths)``), the bucket
+        indices and the vertex ids 0..n+1."""
+        if self._bucket_of is None:
+            self._nbr_tables()
+            widths = self._bucket_widths()
+            deg = np.append(self._nbr_deg, 0)  # rows 0..n, then the spare slot
+            # deg in (widths[i-1], widths[i]] -> bucket i
+            bucket = np.where(deg > 0, np.searchsorted(widths, deg), len(widths))
+            self._bucket_of = self._upload(bucket.astype(np.int8)).long()
+            self._bucket_ids = torch.arange(len(widths), device=self.device)
+            self._vertex_ids = torch.arange(self.n + 2, dtype=torch.int32, device=self.device)
+
+    def _vertex_mask(self) -> torch.Tensor:
+        """An empty (n+2,) vertex mask: rows 0..n, and n+1, the spare slot
+        that masked-out ids are aimed at."""
+        return torch.zeros(self.n + 2, dtype=torch.bool, device=self.device)
+
+    def _mark(self, mask: torch.Tensor, ids: torch.Tensor, keep=None) -> None:
+        """Set ``mask`` in place at the vertex ids ``ids`` (any shape; -1 pads
+        skipped) where ``keep`` holds: a fixed-size index, whatever is kept."""
+        ok = ids >= 0 if keep is None else keep & (ids >= 0)
+        mask.index_fill_(0, torch.where(ok, ids, self.n + 1).reshape(-1).long(), True)
+
+    def _receiver_parts(self, mask: torch.Tensor) -> list[tuple[int, torch.Tensor]]:
+        """``_bucket_parts`` of the vertices set in ``mask``, made on the
+        card: (width, rows) for each non-empty bucket, in bucket order,
+        ascending ids within one, rows a device int32 tensor. The bucket
+        sizes are read back (the round's one crossing), then each receiver
+        goes to its rank in that order, a ``cumsum`` over the (buckets,
+        n+2) membership flattened bucket-major, by a ``scatter`` into a
+        buffer of the size read back; every other vertex goes to the spare
+        slot past it. (One flat scan: a scan along each of the few bucket
+        rows runs a row to a block.)
+
+        A receiver is a BNS neighbour of a row that ran in a part, and BN
+        adjacency is symmetric, so it has degree >= 1 and a part: the sizes
+        read back are the host set's size, which decides termination."""
+        nb = self._bucket_ids.shape[0]
+        key = torch.where(mask, self._bucket_of, nb)
+        hot = key == self._bucket_ids[:, None]  # (buckets, n+2)
+        count = hot.sum(dim=1, dtype=torch.int32)
+        sizes = self._readback(count)
+        total = int(sizes.sum())
+        if total == 0:
+            return []
+        rank = hot.reshape(-1).cumsum(0, dtype=torch.int32)
+        at = key.clamp(max=nb - 1) * (self.n + 2) + self._vertex_ids
+        slot = torch.where(key < nb, rank[at] - 1, total)
+        rows = torch.empty(total + 1, dtype=torch.int32, device=self.device)
+        rows.scatter_(0, slot.long(), self._vertex_ids)
+        parts = rows[:total].split([int(s) for s in sizes])
+        return [(t, part) for t, part in zip(self._bucket_widths(), parts) if part.numel()]
+
+    def _next_receivers(self, ran, *, narrow=None, touched=None):
+        """The next round's parts from the round that ran, ``ran`` = (width,
+        rows, changed mask) a part: the BNS neighbours of the changed rows
+        (read from each part's bucket table: ``lo_ids[changed] ∪
+        hi_ids[changed]``, the push form, which asks nothing of the
+        adjacency's symmetry), ANDed with the ``narrow`` mask where one is
+        given, split by ``_receiver_parts``; the changed rows are also set
+        in ``touched`` where one is given. Counts the set's rows as
+        ``receiver_rows``."""
+        receivers = self._vertex_mask()
+        for t, part, changed in ran:
+            self._mark(receivers, self._nbr_slice(t)[0][part.long()], changed[:, None])
+            if touched is not None:
+                self._mark(touched, part, changed)
+        parts = self._receiver_parts(receivers if narrow is None else receivers & narrow)
+        trace.count("receiver_rows", sum(part.numel() for _, part in parts))
+        return parts
+
+    def _repair(self, rows: np.ndarray) -> int:
+        """``EngineCore._repair``'s rounds, parts and order, with each round's
+        receivers built on the card: the BNS neighbours of the rows that
+        changed, narrowed to the purged rows' mask (``_repair_receivers``)."""
+        self._receiver_tables()
+        purged = self._vertex_mask()
+        self._mark(purged, self._upload(rows))
+        parts = self._receiver_parts(purged)
+        active = rows.size > 0
+        rounds = 0
+        while active and rounds < _MAX_REPAIR_ROUNDS:
+            ran = [(t, part, self._repair_part(part, t)) for t, part in parts]
+            rounds += 1
+            self._checkpoint("mid-repair-round")
+            parts = self._next_receivers(ran, narrow=purged)
+            active = bool(parts)
+        if active:
+            raise RuntimeError(
+                f"delete repair did not reach a fixpoint in {_MAX_REPAIR_ROUNDS} rounds"
+            )
+        return rounds
+
+    def _repair_part(self, part: torch.Tensor, t: int) -> torch.Tensor:
+        """One repair round over device rows ``part`` of width bucket ``t``;
+        the changed mask stays on the device."""
         self._own_tables()
-        nbr_tab, w_tab = self._nbr_slice(self._t_bucket(part))
-        changed = _repair_round(
-            nbr_tab, w_tab, self._upload(part), self._vk_ids, self._vk_d, self.use_kernel
-        )
-        return self._readback(changed)
+        nbr_tab, w_tab = self._nbr_slice(t)
+        return _repair_round(nbr_tab, w_tab, part, self._vk_ids, self._vk_d, self.use_kernel)
+
+    def _insert_frontier(
+        self, inserts: list[int]
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+        """``EngineCore._insert_frontier``'s rounds, parts and order, with
+        each round's receivers built on the card (the BNS neighbours of the
+        rows that changed, ``_expand_receivers``) and the touched rows kept
+        in a device mask, read back once after convergence."""
+        self._receiver_tables()
+        src = np.asarray(inserts, np.int32)
+        state = self._frontier_init(src)
+        touched = self._vertex_mask()
+        # round 1's receivers: the sources' neighbours, as if the sources had
+        # run as one part of the widest bucket and all changed; a padded
+        # source column reads the dummy row n, which has no neighbours
+        src_rows = torch.where(self._fsrc >= 0, self._fsrc, self.n)
+        parts = self._next_receivers([(self._bucket_widths()[-1], src_rows, self._fsrc >= 0)],
+                                     touched=touched)
+        active = src.size > 0
+        rounds = 0
+        while active and rounds < _MAX_REPAIR_ROUNDS:
+            ran = []
+            for t, part in parts:
+                self._fwidth = t
+                state, changed = self._frontier_part(state, part)
+                ran.append((t, part, changed))
+            rounds += 1
+            parts = self._next_receivers(ran, touched=touched)
+            active = bool(parts)
+        if active:
+            raise RuntimeError(
+                f"checkIns frontier did not reach a fixpoint in {_MAX_REPAIR_ROUNDS} rounds"
+            )
+        rows = np.flatnonzero(self._readback(touched[: self.n])).astype(np.int32)
+        trace.count("rows_touched", rows.size)
+        return (*self._frontier_candidates(state, rows, src), rounds)
 
     # frontier provider: the multi-source tentative distance state is one
     # (n+1, B) device matrix, private to the flush and updated in place
@@ -1348,12 +1507,13 @@ class QueryEngine(EngineCore):
         self._fcols = len(src)
         return _frontier_init_prog(self._fsrc, self._vk_ids.shape[0])
 
-    def _frontier_part(self, state, part: np.ndarray):
-        nbr_tab, w_tab = self._nbr_slice(self._t_bucket(part))
-        rows = self._upload(part)
-        trace.count("k3_bytes", _k3_least_bytes(nbr_tab, rows, self._fcols))
+    def _frontier_part(self, state, part: torch.Tensor):
+        # device rows of one width bucket, ``self._fwidth``, which the round
+        # loop names before the call (the hook keeps EngineCore's signature)
+        nbr_tab, w_tab = self._nbr_slice(self._fwidth)
+        trace.count("k3_bytes", _k3_least_bytes(nbr_tab, part, self._fcols))
         changed = _frontier_round(
-            nbr_tab, w_tab, rows, state, self._fkth, self._fsrc, self.use_kernel,
+            nbr_tab, w_tab, part, state, self._fkth, self._fsrc, self.use_kernel,
         )
         return state, changed
 

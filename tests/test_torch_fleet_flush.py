@@ -7,10 +7,15 @@
 * A flush in which every object moves one street at once leaves tables and
   stats equal to the JAX engine's after every flush, and no (rows x sources)
   array crosses to the host in it.
+* The receiver sets the scalar engine builds on the device each round are
+  ``EngineCore``'s host sets, split into the same parts in the same order:
+  for sets built from chosen changed rows, and round by round through whole
+  flushes, on a graph with a row in every width bucket and a degree-0 row.
 * The flush's five spans nest in order under a profiler, and its counters
   hold what the flush did: ``d2h_bytes`` the bytes ``_readback`` returned,
-  the round counts of the stats dict, and ``k3_bytes`` K3's least bytes
-  recounted on the host from the BN-Graph.
+  the round counts of the stats dict, ``k3_bytes`` K3's least bytes
+  recounted on the host from the BN-Graph, and ``receiver_rows`` the sizes
+  of the host receiver sets.
 """
 import dataclasses
 import json
@@ -23,11 +28,13 @@ from torch.profiler import ProfilerActivity, profile
 from repro.core.bngraph import build_bngraph as jax_build_bngraph
 from repro.core.engine import QueryEngine as JaxEngine
 from repro.core.reference import knn_index_cons_plus as jax_cons_plus
+from repro.graph.csr import from_edges as jax_from_edges
 from repro.graph.generators import pick_objects
 from repro.graph.generators import road_network as jax_road_network
 from repro_torch import trace
 from repro_torch.core.bngraph import bngraph_from_arrays
 from repro_torch.core.engine import EngineCore, QueryEngine
+from repro_torch.graph.csr import from_edges
 from repro_torch.graph.generators import road_network
 
 FLUSH = "repro_torch.flush_updates"
@@ -47,17 +54,27 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _fleet(grid: int, mu: float, k: int, seed: int = 0):
+def _fleet(grid: int, mu: float, k: int, seed: int = 0, hub: int = 0):
     """(road network, JAX engine, port engine) over identical BN-Graph and
-    tables, objects at density ``mu``."""
+    tables, objects at density ``mu``. ``hub`` > 0 adds two vertices: a hub
+    joined to ``hub`` random vertices (a row in the widest width bucket) and
+    an isolated vertex (a degree-0 row), ids n and n+1 of the grid."""
     jg = jax_road_network(grid, grid, seed=seed)
+    g = road_network(grid, grid, seed=seed)
+    if hub:
+        edges = [(u, int(v), float(w)) for u in range(g.n)
+                 for v, w in zip(*g.neighbors(u)) if u < v]
+        rng = np.random.default_rng(seed)
+        edges += [(g.n, int(v), float(rng.integers(1, 10)))
+                  for v in rng.choice(g.n, hub, replace=False)]
+        jg, g = jax_from_edges(g.n + 2, edges), from_edges(g.n + 2, edges)
     objects = pick_objects(jg.n, mu, seed=seed)
     jbn = jax_build_bngraph(jg)
     bn = bngraph_from_arrays(**{f.name: getattr(jbn, f.name) for f in dataclasses.fields(jbn)})
     je = JaxEngine.from_index(jax_cons_plus(jbn, objects, k), objects, bn=jbn)
     ids, d = (np.asarray(t) for t in je.tables)
     te = QueryEngine.from_tables(ids, d, k, objects, bn=bn, device="cpu")
-    return road_network(grid, grid, seed=seed), je, te
+    return g, je, te
 
 
 def _move_every_object(g, engines, objects: set, rng) -> int:
@@ -160,6 +177,157 @@ def test_every_object_moving_at_once_matches_jax_after_every_flush(grid, mu, k, 
     assert crossed and all(len(shape) == 1 for shape in crossed)
 
 
+def test_a_hub_and_an_isolated_vertex_match_jax_after_every_flush():
+    # a row in each of the four width buckets (the hub's above 128), and a
+    # degree-0 row that an object enters and leaves: purged, in no part
+    g, je, te = _fleet(14, 0.1, 4, seed=14, hub=170)
+    hub, iso = g.n - 2, g.n - 1
+    te._nbr_tables()
+    assert len(te._bucket_widths()) == 4 and te._nbr_deg[hub] > 128 and te._nbr_deg[iso] == 0
+    objects = set(te.objects.tolist())
+    rng = np.random.default_rng(14)
+    for step in range(3):
+        _move_every_object(g, (je, te), objects, rng)
+        for eng in (je, te):
+            if step == 0 and iso not in objects:
+                eng.stage_insert(iso)
+            if step == 1:
+                eng.stage_delete(iso)
+            if step == 2 and hub not in objects:
+                eng.stage_insert(hub)
+        objects = set(te._pending)
+        assert te.flush_updates() == je.flush_updates()
+        _tables_equal(je, te)
+
+
+# ---------------------------------------------------------------------------
+# receiver sets built on the device
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def hub_engine():
+    g, _, te = _fleet(14, 0.1, 4, seed=14, hub=170)
+    te._receiver_tables()
+    return te, g.n - 2, g.n - 1
+
+
+def _vertex_mask(te, rows: np.ndarray) -> torch.Tensor:
+    mask = te._vertex_mask()
+    te._mark(mask, torch.from_numpy(np.asarray(rows, np.int32)))
+    return mask
+
+
+def _assert_parts(te, got, want):
+    """Device parts ``got`` ((width, rows) pairs) are the host parts ``want``,
+    in order, each at its bucket's width; the dummy row n is in none."""
+    assert len(got) == len(want)
+    widths = te._bucket_widths()
+    for (t, part), w in zip(got, want):
+        assert part.dtype == torch.int32
+        np.testing.assert_array_equal(part.numpy(), w)
+        deg = te._nbr_deg[w]
+        lo = ([0] + widths)[widths.index(t)]
+        assert ((deg > lo) & (deg <= t)).all()
+        assert te.n not in part.numpy()
+
+
+@pytest.mark.parametrize("kind", ["repair", "frontier"])
+@pytest.mark.parametrize("case", ["empty", "one", "degree-0", "widest", "every", "random"])
+def test_receiver_parts_built_on_the_device_equal_the_host_parts(hub_engine, kind, case):
+    te, hub, iso = hub_engine
+    n = te.n
+    rng = np.random.default_rng(sum(map(ord, kind + case)))
+    changed = {
+        "empty": np.empty(0, np.int32),
+        "one": rng.choice(n, 1),
+        "degree-0": np.array([iso]),
+        "widest": np.array([hub]),
+        "every": np.arange(n),
+        "random": rng.choice(n, n // 4, replace=False),
+    }[case].astype(np.int32)
+    # the rows that ran this round: the changed ones among others
+    ran = np.union1d(changed, rng.choice(n, n // 3, replace=False)).astype(np.int32)
+    ran_parts = te._receiver_parts(_vertex_mask(te, ran))
+    _assert_parts(te, ran_parts, list(te._bucket_parts(ran)))
+    ran = [(t, part, torch.from_numpy(np.isin(part.numpy(), changed))) for t, part in ran_parts]
+    if kind == "repair":
+        rows = np.arange(n) if case == "every" else rng.choice(n, 3 * n // 5, replace=False)
+        rows = np.sort(rows).astype(np.int32)
+        got = te._next_receivers(ran, narrow=_vertex_mask(te, rows))
+        want = EngineCore._repair_receivers(te, changed, rows)
+    else:
+        touched = te._vertex_mask()
+        got = te._next_receivers(ran, touched=touched)
+        want = EngineCore._expand_receivers(te, changed)
+        # the changed rows that ran: a degree-0 row is in no part
+        np.testing.assert_array_equal(np.flatnonzero(touched[:n].numpy()),
+                                      np.unique(changed[te._nbr_deg[changed] > 0]))
+    _assert_parts(te, got, list(te._bucket_parts(want)))
+    if case in ("empty", "degree-0"):
+        assert got == []
+
+
+def _replay(te, parts, first, expand):
+    """Walk the host round loop over recorded device parts: each round's
+    parts must be ``_bucket_parts`` of the host receiver set (``first``,
+    then ``expand(changed rows)``); returns the rounds and the summed sizes
+    of the sets ``expand`` built."""
+    active, rounds, built = first, 0, 0
+    while active.size:
+        want = list(te._bucket_parts(active))
+        got, parts = parts[:len(want)], parts[len(want):]
+        assert len(got) == len(want)
+        for (part, _), w in zip(got, want):
+            np.testing.assert_array_equal(part, w)
+        rounds += 1
+        changed = np.concatenate([p[m] for p, m in got] + [np.empty(0, np.int32)])
+        active = expand(changed) if changed.size else changed
+        built += active.size
+    assert parts == []
+    return rounds, built
+
+
+def test_receiver_rows_counts_the_host_receiver_sets(monkeypatch):
+    g, je, te = _fleet(12, 0.08, 4, seed=7)
+    objects = set(te.objects.tolist())
+    _move_every_object(g, (te,), objects, np.random.default_rng(7))
+    seen = {"repair": [], "frontier": []}
+    real = {name: getattr(QueryEngine, name) for name in
+            ("_repair", "_insert_frontier", "_repair_part", "_frontier_part")}
+
+    def repair(self, rows):
+        seen["purged"] = np.array(rows)
+        return real["_repair"](self, rows)
+
+    def insert_frontier(self, inserts):
+        seen["src"] = np.asarray(inserts, np.int32)
+        return real["_insert_frontier"](self, inserts)
+
+    def repair_part(self, part, t):
+        changed = real["_repair_part"](self, part, t)
+        seen["repair"].append((part.numpy().copy(), changed.numpy().copy()))
+        return changed
+
+    def frontier_part(self, state, part):
+        state, changed = real["_frontier_part"](self, state, part)
+        seen["frontier"].append((part.numpy().copy(), changed.numpy().copy()))
+        return state, changed
+    for name, fn in (("_repair", repair), ("_insert_frontier", insert_frontier),
+                     ("_repair_part", repair_part), ("_frontier_part", frontier_part)):
+        monkeypatch.setattr(QueryEngine, name, fn)
+    res = te.flush_updates()
+    purged = seen["purged"]
+    r_rounds, r_built = _replay(te, seen["repair"], purged,
+                                lambda c: EngineCore._repair_receivers(te, c, purged))
+    first = EngineCore._expand_receivers(te, np.unique(seen["src"]))
+    f_rounds, f_built = _replay(te, seen["frontier"], first,
+                                lambda c: EngineCore._expand_receivers(te, c))
+    assert (r_rounds, f_rounds) == (res["repair_rounds"], res["frontier_rounds"])
+    assert r_rounds > 1 and f_rounds > 1
+    assert trace.last(FLUSH)["receiver_rows"] == r_built + first.size + f_built > 0
+
+
 # ---------------------------------------------------------------------------
 # spans and counters
 # ---------------------------------------------------------------------------
@@ -226,4 +394,4 @@ def test_a_flush_outside_a_profiler_still_counts():
     counts = trace.last(FLUSH)
     assert counts["frontier_rounds"] == res["frontier_rounds"]
     assert set(counts) == {"d2h_bytes", "h2d_bytes", "frontier_rounds", "repair_rounds",
-                           "rows_touched", "k3_bytes"}
+                           "rows_touched", "k3_bytes", "receiver_rows"}

@@ -156,9 +156,19 @@ def test_query_batch_transfers(small, layout, h2d):
 # flush path changes these numbers. The scalar engine compacts the frontier's
 # candidates on the device: one readback of per-row counts where the host
 # compaction read the mask and the distances, and the kept rows' positions go
-# up where the candidate lists did.
+# up where the candidate lists did. It also builds each round's receiver parts
+# on the device: no part goes up and no changed mask comes back, one readback
+# of the bucket sizes a round (and one for the round-1 split) does. Its 4
+# inserts + 2 deletes (5 frontier rounds, 3 repair rounds, bucket widths 8 and
+# 18) cross as
+#   h2d 13 = deleted ids 1 + bucket vector 1 + sources 1 + two bucket slices
+#            of 2 tables (18 for the sources' neighbours, 8) 4 + touched rows
+#            and kept positions 2 + placed positions 1 + purge rows and
+#            deleted ids 2 + purged rows 1
+#   d2h 13 = delete-scan mask 1 + frontier sizes 1 + 5 + touched mask 1 +
+#            per-row counts 1 + repair sizes 1 + 3
 _FLUSH_COUNTS = {
-    ("scalar", False): (26, 17), ("scalar", True): (26, 19),
+    ("scalar", False): (13, 13), ("scalar", True): (13, 15),
     ("shards=2", False): (82, 26), ("shards=2", True): (83, 28),
     ("shards=2,host", False): (102, 40), ("shards=2,host", True): (103, 42),
 }
