@@ -28,7 +28,7 @@ and exposes the paper's three operations in batched form:
   naming a deleted object (``ops.rows_containing``); the checkIns frontier for
   ALL staged inserts runs as multi-source pruned-relaxation rounds on device
   (``ops.frontier_relax_rows`` with changed-frontier narrowing, see
-  ``EngineCore._insert_frontier``; the host ``updates.insert_affected_set``
+  ``QueryEngine._insert_frontier``; the host ``updates.insert_affected_set``
   heap search survives as the per-object oracle and as the ``frontier =
   "host"`` baseline pipeline) against the pre-update k-th distances; then one
   ``ops.rows_purge_merge`` over the union of the hit rows and the frontier
@@ -76,17 +76,16 @@ unless ``engine.checkpoint_hook`` is set. It fires at
 (after each Jacobi repair round), ``"pre-swap"`` (epoch ``e+1`` built, not yet
 published) and ``"post-swap"`` (published and journal-committed).
 
-Host/device traffic per flush: the update script and affected-row indices go
-up. On the sharded engine a changed-row mask per frontier/repair round part
-comes back (it narrows the next round's receiver set, built on the host);
-the scalar engine builds each round's receiver parts on the device from the
-masks left there (``QueryEngine._receiver_parts``) and reads back only the
-parts' sizes, then the touched-row mask once. Once the frontier converges,
-one count a touched row comes back. On the scalar engine the affected test
-and the compaction of the (rows x sources) frontier tile into per-row
-candidate lists run on the device, and the lists stay there for the purge +
-merge. The k-th-distance
-column, the checkIns pruning bound, never leaves the device. Queries move
+Host/device traffic per flush: the update script and the purged rows go
+up once. Each frontier and repair round builds its receiver parts on the
+device from the changed masks the parts before it left there
+(``QueryEngine._receiver_parts``) and reads back only the parts' sizes; the
+touched-row mask comes back once the frontier converges, then one count a
+touched row. The affected test and the compaction of the (rows x sources)
+frontier tile into per-row candidate lists run on the device, and the lists
+stay there for the purge + merge. The k-th-distance column, the checkIns
+pruning bound, never leaves the device. (The sharded engine's rounds build
+their receiver sets on the host: ``repro_torch.core.sharded``.) Queries move
 only the query ids up and the (B, k) result tiles stay on the device until
 the caller reads them.
 
@@ -232,9 +231,9 @@ def _pow2_pad(x: int, lo: int = 8) -> int:
 
 class EngineCore:
     """Layout-independent serving core: the staged queue and its coalescing,
-    query bookkeeping, the flush orchestration (delete scan -> batched device
-    checkIns frontier -> fused purge+merge -> breadth-first repair with its
-    changed-row frontier narrowing), epochs and the stats surface.
+    query bookkeeping, the flush contract (delete scan -> checkIns frontier
+    -> fused purge+merge -> breadth-first repair -> atomic publish), epochs
+    and the stats surface.
 
     A subclass owns the table storage and implements the device hooks:
 
@@ -249,26 +248,24 @@ class EngineCore:
     * ``_scan_delete_rows(deletes)``: row ids naming any deleted object.
     * ``_purge_merge(rows, deletes, cand_ids, cand_d)``: the fused purge +
       candidate merge over one row batch.
-    * ``_repair_part(part)``: one Jacobi re-merge of ``part`` rows against
-      their bridge neighbourhoods; returns the per-row changed mask.
-    * the frontier seam: ``_frontier_init(src)`` allocates the multi-source
-      tentative-distance state for one staged insert batch,
-      ``_frontier_part(state, part)`` runs one pruned-relaxation round over a
-      receiver-row bucket (returning the new state + changed mask), and
-      ``_frontier_candidates(state, rows, src)`` turns the converged state
-      into the affected rows' candidate lists; its default reads back the
-      affected mask and distances of the touched rows
-      (``_frontier_extract(state, rows, src)``) and compacts them on the
-      host.
     * ``_table_kth()``: the (n,) k-th-distance column (float64 host array),
       read only by the ``frontier = "host"`` baseline pipeline.
-
-    ``_repair`` and ``_insert_frontier`` are the round loops, building each
-    round's receiver set on the host (``_repair_receivers``,
-    ``_expand_receivers``) and splitting it by ``_bucket_parts``; the sharded
-    engine runs them. ``QueryEngine`` overrides both with loops that build
-    the sets on the device, and its part hooks take device rows.
     * ``to_index()``: readback into the host ``KNNIndex`` view.
+
+    and the flush's two round loops, each run to its fixpoint:
+
+    * ``_insert_frontier(inserts) -> (rows, cand_ids, cand_d, rounds)``:
+      Algorithm 4's checkIns for ALL staged inserts at once, as
+      pruned-relaxation rounds against the pre-update k-th distances: the
+      affected rows (sorted) and their compacted (object, exact distance)
+      candidate lists, host arrays or device tensors, in the layout of
+      ``_insert_frontier_host`` (the fixpoint is schedule-independent).
+    * ``_repair(rows) -> rounds``: Jacobi re-merges of the purged rows
+      (Algorithm 5's processDel, breadth-first).
+
+    Both walk the JAX engine's rounds, parts and order: ``QueryEngine``
+    builds each round's receiver sets on the device, ``ShardedQueryEngine``
+    on the host (``repro_torch.core.sharded``).
     """
 
     def __init__(self, k: int, objects, *, bn: BNGraph | None, use_kernel: bool):
@@ -627,11 +624,11 @@ class EngineCore:
         """Bind the BN-Graph's combined BNS adjacency (``bns_packed``).
 
         Valid neighbours are compacted to the front of each row, so a row with
-        degree d is fully described by the first d columns; frontier and
-        repair rounds then run on the (n+1, t) column slice of the smallest
-        pow4 bucket t >= the batch rows' max degree instead of the global
-        tau'. The padded host tables are built once per BNGraph; the per-width
-        device slices are cached per engine (``_nbr_slice``).
+        degree d is fully described by the first d columns; a frontier or
+        repair part then runs on the (n+1, t) column slice of its width
+        bucket t (``_bucket_widths``) instead of the global tau'. The padded
+        host tables are built once per BNGraph; the per-width device slices
+        are cached per engine (``_nbr_slice``).
         """
         if self._nbr_ids is None:
             packed = self.bn.bns_packed()
@@ -664,14 +661,6 @@ class EngineCore:
             )
         return self._nbr_by_t[t]
 
-    def _t_bucket(self, rows: np.ndarray) -> int:
-        """Smallest pow4 width (>= 8) covering the rows' max BNS degree."""
-        t_max = int(self._nbr_deg[rows].max())
-        t = 8
-        while t < t_max:
-            t *= 4
-        return min(t, self._nbr_ids.shape[1])
-
     # hooks the flush pipeline drives -----------------------------------
 
     def _table_snapshot(self) -> tuple:
@@ -693,184 +682,19 @@ class EngineCore:
     def _purge_merge(self, rows, deletes, cand_ids, cand_d) -> None:
         raise NotImplementedError
 
-    def _repair_part(self, part: np.ndarray) -> np.ndarray:
-        raise NotImplementedError
-
-    def _frontier_init(self, src: np.ndarray):
-        raise NotImplementedError
-
-    def _frontier_part(self, state, part: np.ndarray):
-        raise NotImplementedError
-
-    def _frontier_round(self, state, nbrs: np.ndarray):
-        """One frontier round over receiver set ``nbrs``: bucket by BNS
-        degree, enqueue each part, then read the changed masks back once the
-        whole round is queued (a mask is a device tensor until then, so the
-        later buckets' upload work overlaps the earlier buckets' compute)."""
-        pending = []
-        for part in self._bucket_parts(nbrs):
-            state, changed_mask = self._frontier_part(state, part)
-            pending.append((part, changed_mask))
-        changed_parts = [p[m if isinstance(m, np.ndarray) else self._readback(m)]
-                         for p, m in pending]
-        return state, changed_parts
-
-    def _frontier_extract(self, state, rows: np.ndarray, src: np.ndarray):
-        raise NotImplementedError
-
-    def _frontier_candidates(self, state, rows: np.ndarray, src: np.ndarray):
-        """The converged frontier's affected rows among the touched ``rows``
-        and their candidate lists, in ``_compact_candidates``' layout. This
-        default reads the (R, B) affected mask and distances back and
-        compacts them on the host."""
-        aff, dvals = self._frontier_extract(state, rows, src)
-        return self._compact_candidates(rows, aff, dvals, src)
-
-    def _bucket_widths(self) -> list[int]:
-        """The width buckets of ``_bucket_parts``: 8, 32 and 128 where they
-        are below tau', then tau'."""
-        cap = self._nbr_ids.shape[1]
-        return [b for b in (8, 32, 128) if b < cap] + [cap]
-
-    def _bucket_parts(self, rows: np.ndarray):
-        """Split a row batch by BNS-degree width bucket (8/32/128/tau').
-
-        Shared by the repair and frontier rounds: each part runs against the
-        (n+1, t) adjacency slice of its bucket, so the per-round work is sized
-        to the batch, not to the global tau'. The split is a pure function of
-        the row ids and is the JAX engine's, so the two engines walk the same
-        round trajectory.
-        """
-        deg = self._nbr_deg[rows]
-        prev = 0
-        for t in self._bucket_widths():
-            part = rows[(deg > prev) & (deg <= t)]
-            prev = t
-            if part.size:
-                yield part
-
-    def _repair(self, rows: np.ndarray) -> int:
-        """Jacobi repair rounds over the purged rows; returns the round count.
-
-        Round 1 re-merges every purged row; later rounds only the frontier:
-        a row can improve again only if a BNS neighbour's row changed last
-        round (BN adjacency is symmetric, so BNS(changed) IS that set). Only
-        the frontier's *vertex ids* survive a round boundary; the row data
-        never leaves the device between rounds.
-        """
-        self._nbr_tables()
-        active = rows
-        rounds = 0
-        while active.size and rounds < _MAX_REPAIR_ROUNDS:
-            changed_parts = []
-            for part in self._bucket_parts(active):
-                changed_mask = self._repair_part(part)
-                changed_parts.append(part[changed_mask])
-            rounds += 1
-            self._checkpoint("mid-repair-round")
-            changed_rows = (
-                np.concatenate(changed_parts) if changed_parts else np.empty(0, np.int32)
-            )
-            if changed_rows.size == 0:
-                break
-            active = self._repair_receivers(changed_rows, rows)
-        else:
-            if active.size:
-                raise RuntimeError(
-                    f"delete repair did not reach a fixpoint in {_MAX_REPAIR_ROUNDS} rounds"
-                )
-        return rounds
-
     def _insert_frontier(
         self, inserts: list[int]
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
-        """Batched checkIns frontier on device: Algorithm 4 lines 1-8 for ALL
-        staged inserts as multi-source pruned-relaxation rounds.
+        raise NotImplementedError
 
-        Round r relaxes the BNS edges of every vertex whose tentative distance
-        changed in round r-1 (round 1: the sources themselves), pruned on
-        device by the live k-th-distance column, the checkIns test
-        ``d < kth[w]``. Only changed-row masks cross the host boundary in the
-        rounds; after convergence ``_frontier_candidates`` gives the affected
-        rows' lists. Returns
-        ``(rows, cand_ids, cand_d, rounds)``: the affected rows (sorted) with
-        their per-row compacted (inserted object, exact distance) candidate
-        lists (host arrays, or device tensors where the layout compacts on
-        the device), the same contract as the ``frontier = "host"`` pipeline (the
-        pruned-relaxation fixpoint is schedule-independent, so the Dijkstra
-        oracle and these Jacobi rounds land on identical sets and distances).
-        """
-        self._nbr_tables()
-        src = np.asarray(inserts, np.int32)
-        state = self._frontier_init(src)
-        active = np.unique(src)
-        touched = [active]
-        rounds = 0
-        while active.size and rounds < _MAX_REPAIR_ROUNDS:
-            nbrs = self._expand_receivers(active)
-            state, changed_parts = self._frontier_round(state, nbrs)
-            rounds += 1
-            active = (
-                np.concatenate(changed_parts) if changed_parts else np.empty(0, np.int32)
-            )
-            if active.size:
-                touched.append(active)
-        if active.size:
-            raise RuntimeError(
-                f"checkIns frontier did not reach a fixpoint in {_MAX_REPAIR_ROUNDS} rounds"
-            )
-        rows = np.unique(np.concatenate(touched)).astype(np.int32)
-        trace.count("rows_touched", rows.size)
-        return (*self._frontier_candidates(state, rows, src), rounds)
+    def _repair(self, rows: np.ndarray) -> int:
+        raise NotImplementedError
 
-    def _repair_receivers(self, changed: np.ndarray, rows: np.ndarray) -> np.ndarray:
-        """Next repair round's active set: the BNS neighbourhoods of the rows
-        that changed, narrowed to the purged batch."""
-        nbrs = np.unique(
-            np.concatenate(
-                [self.bn.lo_ids[changed].ravel(), self.bn.hi_ids[changed].ravel()]
-            )
-        )
-        return np.intersect1d(nbrs[nbrs >= 0], rows).astype(np.int32)
-
-    def _expand_receivers(self, active: np.ndarray) -> np.ndarray:
-        """Next round's receiver set: the union of BNS neighbourhoods of the
-        changed vertices, via the packed adjacency's CSR triple (touches
-        exactly the live edges, no padded columns)."""
-        starts = self._nbr_indptr[active]
-        counts = self._nbr_indptr[active + 1] - starts
-        total = int(counts.sum())
-        if total == 0:
-            return np.empty(0, np.int32)
-        exc = np.concatenate([[0], np.cumsum(counts)[:-1]])
-        idx = np.repeat(starts - exc, counts) + np.arange(total)
-        return np.unique(self._nbr_indices[idx]).astype(np.int32)
-
-    @staticmethod
-    def _compact_candidates(
-        rows: np.ndarray, aff: np.ndarray, dvals: np.ndarray, src: np.ndarray
-    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """(touched rows, (R, B) affected mask + distances) -> the flush's
-        per-row candidate arrays: affected columns compacted to the front in
-        source order, width pow2-padded, the exact layout the host frontier
-        builds, so ``_purge_merge`` sees identical inputs either way."""
-        keep = aff.any(axis=1)
-        rows, aff, dvals = rows[keep], aff[keep], dvals[keep]
-        if rows.size == 0:
-            return rows, np.empty((0, 1), np.int32), np.empty((0, 1), np.float32)
-        p = _pow2_pad(int(aff.sum(axis=1).max()), lo=4)
-        if p > aff.shape[1]:
-            pad = ((0, 0), (0, p - aff.shape[1]))
-            aff = np.pad(aff, pad)
-            dvals = np.pad(dvals, pad, constant_values=np.inf)
-            src = np.pad(src, (0, p - len(src)), constant_values=-1)
-        order = np.argsort(~aff, axis=1, kind="stable")[:, :p]
-        taken = np.take_along_axis(aff, order, axis=1)
-        cand_ids = np.where(taken, src[order], -1).astype(np.int32)
-        cand_d = np.where(
-            taken, np.take_along_axis(dvals, order, axis=1), np.inf
-        ).astype(np.float32)
-        return rows, cand_ids, cand_d
+    def _bucket_widths(self) -> list[int]:
+        """The width buckets a round's rows are split by: 8, 32 and 128
+        where they are below tau', then tau' (the JAX engine's)."""
+        cap = self._nbr_ids.shape[1]
+        return [b for b in (8, 32, 128) if b < cap] + [cap]
 
     def _place_candidates(self, rows: np.ndarray, frows: np.ndarray, fc_ids, fc_d):
         """The purge + merge batch's (len(rows), P) candidates: the frontier's
@@ -1341,19 +1165,20 @@ class QueryEngine(EngineCore):
             cand_ids, cand_d, self.k, use_kernel=self.use_kernel,
         )
 
-    # the flush's round loops: each round's receiver set is built on the
-    # card from the parts that ran and the changed masks they left there,
-    # and split into ``_bucket_parts``' parts there. Per round one readback
-    # of the bucket sizes (at most 4 int32) crosses; no part goes up, no
-    # mask comes back. The sharded engine keeps EngineCore's host loops. A
-    # part runs at its bucket's width (8, 32, 128, tau'), where
-    # ``_t_bucket`` would give a last-bucket part 512 if tau' > 512 and none
-    # of its rows is wider: K2 and K3 skip padded slots, so only the slice
-    # they read differs.
+    # the flush's round loops walk the JAX engine's rounds, parts and order
+    # (the host form of its loops is the sharded engine's, in
+    # ``repro_torch.core.sharded``): each round's receiver set is built on
+    # the card from the parts that ran and the changed masks they left
+    # there, and split by width bucket there. Per round one readback of the
+    # bucket sizes (at most 4 int32) crosses; no part goes up, no mask comes
+    # back. A part runs at its bucket's width (8, 32, 128, tau'), where the
+    # JAX engine gives a last-bucket part 512 if tau' > 512 and none of its
+    # rows is wider: K2 and K3 skip padded slots, so only the slice they
+    # read differs.
 
     def _receiver_tables(self) -> None:
         """Bind the receiver split's device tables once per engine: each
-        vertex's ``_bucket_parts`` bucket (degree-0 rows, the dummy row n and
+        vertex's width bucket (degree-0 rows, the dummy row n and
         the spare slot n+1 in none, index ``len(widths)``), the bucket
         indices and the vertex ids 0..n+1."""
         if self._bucket_of is None:
@@ -1378,8 +1203,8 @@ class QueryEngine(EngineCore):
         mask.index_fill_(0, torch.where(ok, ids, self.n + 1).reshape(-1).long(), True)
 
     def _receiver_parts(self, mask: torch.Tensor) -> list[tuple[int, torch.Tensor]]:
-        """``_bucket_parts`` of the vertices set in ``mask``, made on the
-        card: (width, rows) for each non-empty bucket, in bucket order,
+        """The vertices set in ``mask`` split by width bucket, on the card:
+        (width, rows) for each non-empty bucket, in bucket order,
         ascending ids within one, rows a device int32 tensor. The bucket
         sizes are read back (the round's one crossing), then each receiver
         goes to its rank in that order, a ``cumsum`` over the (buckets,
@@ -1426,9 +1251,11 @@ class QueryEngine(EngineCore):
         return parts
 
     def _repair(self, rows: np.ndarray) -> int:
-        """``EngineCore._repair``'s rounds, parts and order, with each round's
+        """The JAX engine's repair rounds, parts and order, with each round's
         receivers built on the card: the BNS neighbours of the rows that
-        changed, narrowed to the purged rows' mask (``_repair_receivers``)."""
+        changed, narrowed to the purged rows' mask. Round 1 re-merges every
+        purged row; a later round only those a changed row neighbours (BN
+        adjacency is symmetric, so no other row can improve)."""
         self._receiver_tables()
         purged = self._vertex_mask()
         self._mark(purged, self._upload(rows))
@@ -1457,10 +1284,12 @@ class QueryEngine(EngineCore):
     def _insert_frontier(
         self, inserts: list[int]
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
-        """``EngineCore._insert_frontier``'s rounds, parts and order, with
-        each round's receivers built on the card (the BNS neighbours of the
-        rows that changed, ``_expand_receivers``) and the touched rows kept
-        in a device mask, read back once after convergence."""
+        """The JAX engine's frontier rounds, parts and order, with each
+        round's receivers built on the card (the BNS neighbours of the rows
+        that changed; round 1: of the sources) and the touched rows kept in
+        a device mask, read back once after convergence. Round r relaxes
+        the receivers against the live k-th-distance column, the checkIns
+        test ``d < kth[w]``."""
         self._receiver_tables()
         src = np.asarray(inserts, np.int32)
         state = self._frontier_init(src)
@@ -1509,7 +1338,8 @@ class QueryEngine(EngineCore):
 
     def _frontier_part(self, state, part: torch.Tensor):
         # device rows of one width bucket, ``self._fwidth``, which the round
-        # loop names before the call (the hook keeps EngineCore's signature)
+        # loop names before the call: knnbench/tests/test_knnbench_fleet.py
+        # wraps this method as ``part(self, state, rows)``
         nbr_tab, w_tab = self._nbr_slice(self._fwidth)
         trace.count("k3_bytes", _k3_least_bytes(nbr_tab, part, self._fcols))
         changed = _frontier_round(
@@ -1526,9 +1356,9 @@ class QueryEngine(EngineCore):
         return self._compact_on_device(rows, aff[:, :b], d[:, :b], self._fsrc[:b])
 
     def _compact_on_device(self, rows: np.ndarray, aff, d, src):
-        """``_compact_candidates`` of the device tile (``aff``, ``d``) with
-        source ids ``src``: the kept rows on the host, their lists on the
-        device."""
+        """``sharded.compact_candidates`` of the device tile (``aff``,
+        ``d``) with source ids ``src``: the kept rows on the host, their
+        lists on the device."""
         counts = self._readback(aff.sum(dim=1, dtype=torch.int32))
         keep = np.flatnonzero(counts).astype(np.int32)
         if keep.size == 0:
@@ -1578,7 +1408,7 @@ def _compact_rows(aff, d, src, keep, p: int) -> tuple[torch.Tensor, torch.Tensor
     """Rows ``keep`` of the (R, B) affected mask ``aff`` and distance tile
     ``d`` as (len(keep), p) candidate lists on their device: each row's
     affected columns first, in column (source) order, as (src[column],
-    distance), then (-1, +inf); ``EngineCore._compact_candidates``' layout.
+    distance), then (-1, +inf); ``sharded.compact_candidates``' layout.
     An affected column goes to its rank among its row's affected columns,
     every other one to a spare column p, which is cut off."""
     idx = keep.long()

@@ -7,8 +7,9 @@ by vertex, unlike the hierarchical indexes it replaces (PAPER.md Section 4).
 contiguous vertex ranges, one row block a shard, and the whole ``QueryEngine``
 surface (batched queries, progressive prefixes, staged updates with the fused
 purge+merge flush and Jacobi repair, epochs, journals, save/load) is served on
-that layout. The layout-independent logic is the port's ``EngineCore``, shared
-with the scalar engine, so the round counts and flush stats cannot drift.
+that layout. The flush contract is the port's ``EngineCore``, shared with the
+scalar engine; both engines' round loops walk the JAX engine's rounds, parts
+and order, so the round counts and flush stats cannot drift.
 
 One card, S logical shards
 --------------------------
@@ -51,6 +52,15 @@ Execution
 * Flush: the delete scan and the fused purge+merge run over every shard at
   once (``ops.shard_rows_containing``, ``ops.shard_rows_purge_merge``: one K1
   launch), the coalescing and orchestration are ``EngineCore``'s.
+* The flush's round loops (``_insert_frontier``, ``_repair``) are the host
+  form of the JAX engine's: each round's receiver set is built on the host
+  (``expand_receivers``, ``repair_receivers``; in the collective halo mode
+  marked on the card and read back), split by ``bucket_parts`` into
+  (width, rows) parts that run at their bucket's width, and each part's
+  changed mask comes back; the converged frontier's affected mask and
+  distances come back and are compacted on the host
+  (``compact_candidates``). These four are pure functions of the BN-Graph
+  arrays, and the scalar engine's tests hold its device-built sets to them.
 * At S = 1 the padded tensor IS the scalar (n+1, k) layout and the repair and
   frontier rounds are the scalar engine's own (K2 ``sweep_merge``, K3
   ``frontier_relax_rows``). At S > 1 each round first exchanges the unique
@@ -104,11 +114,13 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.analysis import sanitize
 from repro_torch.core.bngraph import BNGraph
 from repro_torch.core.construct import build_knn_tables, tables_to_index
 from repro_torch.core.engine import (
     _FRONTIER_COLS,
+    _MAX_REPAIR_ROUNDS,
     EngineCore,
     _frontier_affected,
     _frontier_init_prog,
@@ -150,6 +162,81 @@ def unique_inverse(ids: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
     uniq = np.flatnonzero(present)
     rank = np.cumsum(present) - 1
     return uniq, rank[ids]
+
+
+# the flush rounds' host set algebra (module doc, Execution)
+
+
+def bucket_parts(deg: np.ndarray, widths: list[int], rows: np.ndarray) -> list:
+    """Split a row batch by BNS-degree width bucket: ``(width, rows)`` for
+    each non-empty bucket, in bucket order, a row of degree d in the first
+    bucket whose width is >= d (degree-0 rows in none). ``deg`` is the
+    packed BNS degree a vertex, ``widths`` the engine's ``_bucket_widths``.
+
+    Shared by the repair and frontier rounds: each part runs against the
+    (n+1, width) adjacency slice of its bucket, so the per-round work is
+    sized to the batch, not to the global tau'. The split is a pure function
+    of the row ids and is the JAX engine's, so the engines walk the same
+    round trajectory."""
+    d = deg[rows]
+    parts, prev = [], 0
+    for t in widths:
+        part = rows[(d > prev) & (d <= t)]
+        prev = t
+        if part.size:
+            parts.append((t, part))
+    return parts
+
+
+def expand_receivers(indptr: np.ndarray, indices: np.ndarray, active: np.ndarray) -> np.ndarray:
+    """The next frontier round's receiver set: the union of the BNS
+    neighbourhoods of the changed vertices ``active``, sorted, through the
+    packed adjacency's CSR pair (it touches exactly the live edges, no
+    padded columns)."""
+    starts = indptr[active]
+    counts = indptr[active + 1] - starts
+    total = int(counts.sum())
+    if total == 0:
+        return np.empty(0, np.int32)
+    exc = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    idx = np.repeat(starts - exc, counts) + np.arange(total)
+    return np.unique(indices[idx]).astype(np.int32)
+
+
+def repair_receivers(lo_ids: np.ndarray, hi_ids: np.ndarray, changed: np.ndarray,
+                     rows: np.ndarray) -> np.ndarray:
+    """The next repair round's active set: the BNS neighbourhoods of the
+    rows that ``changed`` (``lo_ids`` and ``hi_ids`` of the BN-Graph),
+    narrowed to the purged rows ``rows``, sorted."""
+    nbrs = np.unique(np.concatenate([lo_ids[changed].ravel(), hi_ids[changed].ravel()]))
+    return np.intersect1d(nbrs[nbrs >= 0], rows).astype(np.int32)
+
+
+def compact_candidates(
+    rows: np.ndarray, aff: np.ndarray, dvals: np.ndarray, src: np.ndarray
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(touched rows, (R, B) affected mask + distances) -> the flush's
+    per-row candidate arrays: rows with no affected column dropped, the
+    affected columns compacted to the front in source order, width
+    pow2-padded; the exact layout the host frontier builds, so
+    ``_purge_merge`` sees identical inputs either way."""
+    keep = aff.any(axis=1)
+    rows, aff, dvals = rows[keep], aff[keep], dvals[keep]
+    if rows.size == 0:
+        return rows, np.empty((0, 1), np.int32), np.empty((0, 1), np.float32)
+    p = _pow2_pad(int(aff.sum(axis=1).max()), lo=4)
+    if p > aff.shape[1]:
+        pad = ((0, 0), (0, p - aff.shape[1]))
+        aff = np.pad(aff, pad)
+        dvals = np.pad(dvals, pad, constant_values=np.inf)
+        src = np.pad(src, (0, p - len(src)), constant_values=-1)
+    order = np.argsort(~aff, axis=1, kind="stable")[:, :p]
+    taken = np.take_along_axis(aff, order, axis=1)
+    cand_ids = np.where(taken, src[order], -1).astype(np.int32)
+    cand_d = np.where(
+        taken, np.take_along_axis(dvals, order, axis=1), np.inf
+    ).astype(np.float32)
+    return rows, cand_ids, cand_d
 
 
 def shard_tables(vk_ids: torch.Tensor, vk_d: torch.Tensor, n: int, num_shards: int, *,
@@ -960,35 +1047,105 @@ class ShardedQueryEngine(EngineCore):
     def _purge_merge(self, rows, deletes, cand_ids, cand_d) -> None:
         self._apply_rows(rows, deletes, cand_ids, cand_d)
 
-    def _repair_part(self, part: np.ndarray) -> np.ndarray:
-        """One Jacobi re-merge of ``part`` against its bridge neighbourhoods.
-        At one shard every neighbour row is local and the padded tensor IS the
-        scalar (n+1, k) layout, so the round is the scalar engine's (K2).
-        At S > 1 the halo runs per ``self.halo``: the collective round (a
-        round past ``halo_capacity`` falls back) or the routed host round. The
-        candidate multisets are the scalar round's either way."""
+    # ------------------------------------------------------------------
+    # the flush's round loops (module doc, Execution)
+    # ------------------------------------------------------------------
+
+    def _parts(self, rows: np.ndarray) -> list:
+        return bucket_parts(self._nbr_deg, self._bucket_widths(), rows)
+
+    def _repair(self, rows: np.ndarray) -> int:
+        """Jacobi repair rounds over the purged rows; returns the round count.
+
+        Round 1 re-merges every purged row; later rounds only the frontier:
+        a row can improve again only if a BNS neighbour's row changed last
+        round (BN adjacency is symmetric, so BNS(changed) IS that set). Only
+        the frontier's *vertex ids* survive a round boundary; the row data
+        never leaves the card between rounds.
+        """
+        self._nbr_tables()
+        collective = self.num_shards > 1 and self.halo == "collective"
+        active = rows
+        rounds = 0
+        while active.size and rounds < _MAX_REPAIR_ROUNDS:
+            changed = [part[self._repair_part(part, t)] for t, part in self._parts(active)]
+            rounds += 1
+            self._checkpoint("mid-repair-round")
+            changed = np.concatenate(changed) if changed else np.empty(0, np.int32)
+            if changed.size == 0:
+                break
+            if collective:
+                nbrs = self._expand_receivers_device(changed)
+                active = np.intersect1d(nbrs, rows).astype(np.int32)
+            else:
+                active = repair_receivers(self.bn.lo_ids, self.bn.hi_ids, changed, rows)
+        else:
+            if active.size:
+                raise RuntimeError(
+                    f"delete repair did not reach a fixpoint in {_MAX_REPAIR_ROUNDS} rounds"
+                )
+        return rounds
+
+    def _insert_frontier(
+        self, inserts: list[int]
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+        """The batched checkIns frontier (``EngineCore``'s contract): round
+        r relaxes the BNS edges of every vertex whose tentative distance
+        changed in round r-1 (round 1: the sources themselves), pruned on the
+        card by the live k-th-distance column. The changed rows of each
+        round come back and make the next receiver set; after convergence
+        the touched rows' (R, B) affected mask and distances come back and
+        are compacted on the host (``compact_candidates``)."""
+        self._nbr_tables()
+        src = np.asarray(inserts, np.int32)
+        state = self._frontier_init(src)
+        active = np.unique(src)
+        touched = [active]
+        rounds = 0
+        while active.size and rounds < _MAX_REPAIR_ROUNDS:
+            changed = self._frontier_round(state, self._frontier_receivers(active))
+            rounds += 1
+            active = np.concatenate(changed) if changed else np.empty(0, np.int32)
+            if active.size:
+                touched.append(active)
+        if active.size:
+            raise RuntimeError(
+                f"checkIns frontier did not reach a fixpoint in {_MAX_REPAIR_ROUNDS} rounds"
+            )
+        rows = np.unique(np.concatenate(touched)).astype(np.int32)
+        trace.count("rows_touched", rows.size)
+        aff, dvals = self._frontier_extract(state, rows, src)
+        return (*compact_candidates(rows, aff, dvals, src), rounds)
+
+    def _repair_part(self, part: np.ndarray, t: int) -> np.ndarray:
+        """One Jacobi re-merge of ``part``, rows of width bucket ``t``,
+        against their bridge neighbourhoods. At one shard every neighbour
+        row is local and the padded tensor IS the scalar (n+1, k) layout, so
+        the round is the scalar engine's (K2). At S > 1 the halo runs per
+        ``self.halo``: the collective round (a round past ``halo_capacity``
+        falls back) or the routed host round. The candidate multisets are
+        the scalar round's either way."""
         if self.num_shards == 1:
             self._own_tables()
-            nbr_tab, w_tab = self._nbr_slice(self._t_bucket(part))
+            nbr_tab, w_tab = self._nbr_slice(t)
             return self._readback(_repair_round(nbr_tab, w_tab, self._upload(part), self._ids_g,
                                                 self._d_g, self.use_kernel))
         if self.halo == "collective":
-            out = self._repair_part_collective(part)
+            out = self._repair_part_collective(part, t)
             if out is not None:
                 return out
             self._halo_stats["halo_fallbacks"] += 1
-        return self._repair_part_host(part)
+        return self._repair_part_host(part, t)
 
     def _fetch_rows(self, vs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Routed raw-row fetch to the host (the host halo's exchange)."""
         rows = self._upload(self._route(vs)[0])
         return self._readback(self._ids_g[rows]), self._readback(self._d_g[rows])
 
-    def _routed_plan(self, part: np.ndarray):
-        """The host halo's set algebra for one round over ``part``: the unique
-        neighbours, each neighbour's row in the fetched slab (``len(uniq)`` =
-        miss) and the edge weights."""
-        t = self._t_bucket(part)
+    def _routed_plan(self, part: np.ndarray, t: int):
+        """The host halo's set algebra for one round over ``part`` at width
+        ``t``: the unique neighbours, each neighbour's row in the fetched
+        slab (``len(uniq)`` = miss) and the edge weights."""
         nbr = self._nbr_ids[part, :t]
         valid = nbr >= 0
         uniq, inv = unique_inverse(nbr[valid], self.n)
@@ -996,21 +1153,20 @@ class ShardedQueryEngine(EngineCore):
         slot[valid] = inv
         return uniq, self._upload(slot), self._upload(self._nbr_w[part, :t])
 
-    def _repair_part_host(self, part: np.ndarray) -> np.ndarray:
+    def _repair_part_host(self, part: np.ndarray, t: int) -> np.ndarray:
         """Routed-gather repair round: the unique neighbour rows go through the
         host (fetched, then sent back up as the receivers' slab), the shifted
         candidate lists are built from the slab, every shard merges (K1)."""
-        uniq, slot, w = self._routed_plan(part)
+        uniq, slot, w = self._routed_plan(part, t)
         f_ids, f_d = (self._upload(x) for x in self._fetch_rows(uniq))
         cand_ids, cand_d = ops.halo_candidates(f_ids, f_d, slot, w, self.k)
         return self._apply_rows(part, [], cand_ids, cand_d)
 
-    def _repair_part_collective(self, part: np.ndarray) -> np.ndarray | None:
+    def _repair_part_collective(self, part: np.ndarray, t: int) -> np.ndarray | None:
         """Collective repair round: owners serve the round's unique neighbour
         rows into one slab (gathered before any merge: Jacobi reads), every
         receiver builds its candidates from the slab, one K1 launch merges
         every shard. None when the round's halo exceeds ``halo_capacity``."""
-        t = self._t_bucket(part)
         plan = self._halo_plan(part, self._nbr_ids[part, :t], self._nbr_w[part, :t])
         if plan is None:
             return None
@@ -1103,9 +1259,13 @@ class ShardedQueryEngine(EngineCore):
                                                                device=self.device)
         return psum_masks(masks)
 
-    def _expand_receivers(self, active: np.ndarray) -> np.ndarray:
+    def _frontier_receivers(self, active: np.ndarray) -> np.ndarray:
+        """The next frontier round's receiver set, sorted: the BNS
+        neighbours of the ``active`` (changed) vertices, by
+        ``expand_receivers`` on the host, or in the collective halo mode
+        marked on the card."""
         if self.num_shards == 1 or self.halo != "collective":
-            return super()._expand_receivers(active)
+            return expand_receivers(self._nbr_indptr, self._nbr_indices, active)
         # if the previous frontier round ran fully collective, its rounds
         # already left this round's presence masks (neighbours of exactly
         # the changed = active rows): read those
@@ -1120,18 +1280,12 @@ class ShardedQueryEngine(EngineCore):
         """Receiver-set expansion on the card: route the active vertices to
         their owners, mark their neighbours in each shard's presence mask, sum
         the masks and read back the ascending nonzero slots: exactly
-        ``np.unique`` of the host CSR expansion."""
+        ``expand_receivers``."""
         active = np.asarray(active, np.int64)
         own = self.routing.owner(active)
         mask = self._presence(self._upload(self.routing.padded_rows(active, own)),
                               self._upload(own), self._nbr_ids.shape[1])
         return np.flatnonzero(self._readback(mask)[:-1]).astype(np.int32)
-
-    def _repair_receivers(self, changed: np.ndarray, rows: np.ndarray) -> np.ndarray:
-        if self.num_shards == 1 or self.halo != "collective":
-            return super()._repair_receivers(changed, rows)
-        self._nbr_tables()
-        return np.intersect1d(self._expand_receivers_device(changed), rows).astype(np.int32)
 
     # ------------------------------------------------------------------
     # frontier provider: the (S*(R+1), B) tentative-distance state is laid
@@ -1162,26 +1316,45 @@ class ShardedQueryEngine(EngineCore):
              torch.arange(b, device=self.device)] = torch.where(real, 0.0, _INF)
         return dist
 
-    def _frontier_part(self, state, part: np.ndarray):
-        """One frontier round over one receiver bucket. At one shard, the
+    def _frontier_round(self, state, nbrs: np.ndarray) -> list[np.ndarray]:
+        """One frontier round over receiver set ``nbrs``, in place on
+        ``state``: each ``bucket_parts`` part in turn; returns each part's
+        changed rows. The changed masks are read back once the whole round
+        is queued (a mask is a device tensor until then, so the later parts'
+        upload work overlaps the earlier parts' compute). In the collective
+        halo mode a round that overflows ``halo_capacity`` as a whole re-runs
+        part by part (each part retries the collective round, then the
+        routed one), and the next round's expansion runs standalone."""
+        parts = self._parts(nbrs)
+        if self.num_shards > 1 and self.halo == "collective":
+            changed = self._frontier_round_collective(state, parts)
+            if changed is not None:
+                return changed
+            self._halo_stats["halo_fallbacks"] += 1
+            self._fmask_ok = False
+        masks = [(part, self._frontier_part(state, part, t)) for t, part in parts]
+        return [part[m if isinstance(m, np.ndarray) else self._readback(m)] for part, m in masks]
+
+    def _frontier_part(self, state, part: np.ndarray, t: int):
+        """One frontier round over ``part``, rows of width bucket ``t``, in
+        place on ``state``; returns the changed mask. At one shard, the
         scalar engine's round (K3). At S > 1, per ``self.halo``: the
         collective round (a round past ``halo_capacity`` falls back) or the
         routed host round; the candidate values are the scalar round's
         either way, so the distance trajectories are bit-identical."""
         if self.num_shards == 1:
-            nbr_tab, w_tab = self._nbr_slice(self._t_bucket(part))
-            changed = _frontier_round(nbr_tab, w_tab, self._upload(part), state, self._fkth,
-                                      self._fsrc, self.use_kernel)
-            return state, changed
+            nbr_tab, w_tab = self._nbr_slice(t)
+            return _frontier_round(nbr_tab, w_tab, self._upload(part), state, self._fkth,
+                                   self._fsrc, self.use_kernel)
         if self.halo == "collective":
-            out = self._frontier_part_collective(state, part)
-            if out is not None:
-                return out
+            changed = self._frontier_part_collective(state, part, t)
+            if changed is not None:
+                return changed
             self._halo_stats["halo_fallbacks"] += 1
         # a routed part leaves no presence mask, so the round's expansion
         # runs standalone
         self._fmask_ok = False
-        return self._frontier_part_host(state, part)
+        return self._frontier_part_host(state, part, t)
 
     def _fhalo(self, state: torch.Tensor, plan) -> tuple[torch.Tensor, torch.Tensor]:
         """One collective frontier round over one bucket, in place on
@@ -1214,8 +1387,7 @@ class ShardedQueryEngine(EngineCore):
         out[order] = self._readback(changed)[o_sorted, slot]
         return out
 
-    def _frontier_part_collective(self, state, part: np.ndarray):
-        t = self._t_bucket(part)
+    def _frontier_part_collective(self, state, part: np.ndarray, t: int) -> np.ndarray | None:
         plan = self._halo_plan(part, self._nbr_ids[part, :t], self._nbr_w[part, :t])
         if plan is None:
             return None
@@ -1223,52 +1395,36 @@ class ShardedQueryEngine(EngineCore):
         if self._fmask is not None:
             self._fmask.append(nmask)
         self._halo_stats["halo_rounds_collective"] += 1
-        return state, self._changed_in_order(changed, part, plan)
+        return self._changed_in_order(changed, part, plan)
 
-    def _frontier_round(self, state, nbrs: np.ndarray):
-        if self.num_shards == 1 or self.halo != "collective":
-            return super()._frontier_round(state, nbrs)
-        out = self._frontier_round_collective(state, nbrs)
-        if out is not None:
-            return out
-        self._halo_stats["halo_fallbacks"] += 1
-        # the whole round overflowed halo_capacity: re-run bucket by bucket
-        # (each part retries the collective round, then the routed path), and
-        # let the round's expansion run standalone
-        self._fmask_ok = False
-        return super()._frontier_round(state, nbrs)
-
-    def _frontier_round_collective(self, state, nbrs: np.ndarray):
-        """A whole collective frontier round: every bucket's plan first (None
-        when any overflows ``halo_capacity``), then each bucket's collective
-        round in order, the state threading bucket to bucket: the per-part
-        schedule of the scalar and routed paths, so the round trajectories
-        match theirs, not only the fixpoint."""
-        parts = list(self._bucket_parts(nbrs))
-        if not parts:
-            return state, []
+    def _frontier_round_collective(self, state, parts: list) -> list[np.ndarray] | None:
+        """A whole collective frontier round over ``bucket_parts``' parts:
+        every part's plan first (None when any overflows ``halo_capacity``),
+        then each part's collective round in order, the state threading part
+        to part: the per-part schedule of the scalar and routed paths, so the
+        round trajectories match theirs, not only the fixpoint. Returns each
+        part's changed rows."""
         plans = []
-        for part in parts:
-            t = self._t_bucket(part)
+        for t, part in parts:
             plan = self._halo_plan(part, self._nbr_ids[part, :t], self._nbr_w[part, :t])
             if plan is None:
                 return None
             plans.append(plan)
         changed_parts = []
-        for part, plan in zip(parts, plans):
+        for (_, part), plan in zip(parts, plans):
             changed, nmask = self._fhalo(state, plan)
             if self._fmask is not None:
                 self._fmask.append(nmask)
             changed_parts.append(part[self._changed_in_order(changed, part, plan)])
         self._halo_stats["halo_rounds_collective"] += len(parts)
-        return state, changed_parts
+        return changed_parts
 
-    def _frontier_part_host(self, state, part: np.ndarray):
+    def _frontier_part_host(self, state, part: np.ndarray, t: int) -> torch.Tensor:
         """Routed-gather frontier round: the gated neighbour send rows go
         through the host (the owner gates before its rows leave the shard;
         fetched, then sent back up as the receivers' slab), the receivers fold
         weight + min over their neighbours and min-update."""
-        uniq, slot, w = self._routed_plan(part)
+        uniq, slot, w = self._routed_plan(part, t)
         send = self._upload(self._fetch_send(state, uniq))
         return self._apply_fmin(state, part, ops.halo_fold_min(send, slot, w))
 
@@ -1280,15 +1436,16 @@ class ShardedQueryEngine(EngineCore):
         gate = (own < self._fkth[rows][:, None]) | (rows[:, None] == self._fsrc_g.long()[None, :])
         return self._readback(torch.where(gate, own, _INF))
 
-    def _apply_fmin(self, state, rows: np.ndarray, vals: torch.Tensor):
-        """Min-update of the receivers' rows; returns (state, the per-row
-        changed mask as a bool tensor on the device, in ``rows`` order)."""
+    def _apply_fmin(self, state, rows: np.ndarray, vals: torch.Tensor) -> torch.Tensor:
+        """Min-update of the receivers' rows, in place on ``state``; returns
+        the per-row changed mask as a bool tensor on the device, in ``rows``
+        order."""
         g = self._upload(self.routing.padded_rows(rows))
         own = state[g]
         new = torch.minimum(own, vals)
         changed = (new < own).any(dim=1)
         state[g] = new
-        return state, changed
+        return changed
 
     def _frontier_extract(self, state, rows: np.ndarray, src: np.ndarray):
         b = len(src)

@@ -2,13 +2,15 @@
 
 * The frontier's candidate lists are compacted on the device
   (``QueryEngine._compact_on_device``) in exactly the layout of the host
-  compaction ``EngineCore._compact_candidates``: empty rows dropped, an
+  compaction ``sharded.compact_candidates``: empty rows dropped, an
   all-true row, ties, widths padded past the source count.
 * A flush in which every object moves one street at once leaves tables and
   stats equal to the JAX engine's after every flush, and no (rows x sources)
-  array crosses to the host in it.
+  array crosses to the host in it; with extra inserts or deletes too, it
+  calls none of the sharded engine's host set algebra.
 * The receiver sets the scalar engine builds on the device each round are
-  ``EngineCore``'s host sets, split into the same parts in the same order:
+  the host sets of ``repro_torch.core.sharded`` (the JAX engine's), split
+  into the same parts, at the same widths, in the same order:
   for sets built from chosen changed rows, and round by round through whole
   flushes, on a graph with a row in every width bucket and a degree-0 row.
 * The flush's five spans nest in order under a profiler, and its counters
@@ -32,8 +34,16 @@ from repro.graph.csr import from_edges as jax_from_edges
 from repro.graph.generators import pick_objects
 from repro.graph.generators import road_network as jax_road_network
 from repro_torch import trace
+from repro_torch.core import engine, sharded
 from repro_torch.core.bngraph import bngraph_from_arrays
-from repro_torch.core.engine import EngineCore, QueryEngine
+from repro_torch.core.engine import QueryEngine
+from repro_torch.core.sharded import (
+    ShardedQueryEngine,
+    bucket_parts,
+    compact_candidates,
+    expand_receivers,
+    repair_receivers,
+)
 from repro_torch.graph.csr import from_edges
 from repro_torch.graph.generators import road_network
 
@@ -134,7 +144,7 @@ def _mask_case(r: int, b: int, density: float, seed: int):
 ])
 def test_device_compaction_equals_the_host_compaction(small_engine, r, b, density, seed):
     rows, aff, dvals, src = _mask_case(r, b, density, seed)
-    want = EngineCore._compact_candidates(rows, aff, dvals, src)
+    want = compact_candidates(rows, aff, dvals, src)
     got = small_engine._compact_on_device(rows, torch.from_numpy(aff), torch.from_numpy(dvals),
                                           torch.from_numpy(src))
     np.testing.assert_array_equal(got[0], want[0])
@@ -200,6 +210,39 @@ def test_a_hub_and_an_isolated_vertex_match_jax_after_every_flush():
         _tables_equal(je, te)
 
 
+@pytest.mark.parametrize("heavy", ["inserts", "deletes"])
+def test_the_scalar_flush_never_calls_the_host_set_algebra(monkeypatch, heavy):
+    # the host round loop is the sharded engine's: with its four set-algebra
+    # functions raising, flushes that move every object, with as many extra
+    # inserts or deletes as a third of the fleet, still match the JAX engine
+    def boom(*args, **kwargs):
+        raise AssertionError("the host set algebra was called")
+    for name in ("bucket_parts", "expand_receivers", "repair_receivers", "compact_candidates"):
+        monkeypatch.setattr(sharded, name, boom)
+        assert not hasattr(engine, name)
+    g, je, te = _fleet(12, 0.15, 4, seed=12)
+    objects = set(te.objects.tolist())
+    rng = np.random.default_rng(12)
+    for _ in range(3):
+        _move_every_object(g, (je, te), objects, rng)
+        pool = sorted(set(range(g.n)) - objects) if heavy == "inserts" else sorted(objects)
+        extra = rng.choice(pool, len(objects) // 3, replace=False).tolist()
+        for eng in (je, te):
+            for v in extra:
+                (eng.stage_insert if heavy == "inserts" else eng.stage_delete)(v)
+        objects = set(te._pending)
+        assert te.flush_updates() == je.flush_updates()
+        _tables_equal(je, te)
+        ts, js = te.stats(), je.stats()
+        assert {key: ts[key] for key in STATS} == {key: js[key] for key in STATS}
+    # the same flush on the sharded engine reaches the patched functions
+    ids, d = (t.numpy() for t in te.tables)
+    se = ShardedQueryEngine(ids, d, te.k, te.objects, bn=te.bn, device="cpu")
+    _move_every_object(g, (se,), objects, rng)
+    with pytest.raises(AssertionError, match="host set algebra"):
+        se.flush_updates()
+
+
 # ---------------------------------------------------------------------------
 # receiver sets built on the device
 # ---------------------------------------------------------------------------
@@ -218,13 +261,23 @@ def _vertex_mask(te, rows: np.ndarray) -> torch.Tensor:
     return mask
 
 
+def _host_parts(te, rows):
+    """The host split of ``rows``: ``bucket_parts``' (width, rows) pairs."""
+    return bucket_parts(te._nbr_deg, te._bucket_widths(), rows)
+
+
+def _expand(te, active):
+    return expand_receivers(te._nbr_indptr, te._nbr_indices, active)
+
+
 def _assert_parts(te, got, want):
-    """Device parts ``got`` ((width, rows) pairs) are the host parts ``want``,
-    in order, each at its bucket's width; the dummy row n is in none."""
+    """Device parts ``got`` are the host parts ``want`` ((width, rows)
+    pairs), in order, each at its bucket's width; the dummy row n is in
+    none."""
     assert len(got) == len(want)
     widths = te._bucket_widths()
-    for (t, part), w in zip(got, want):
-        assert part.dtype == torch.int32
+    for (t, part), (wt, w) in zip(got, want):
+        assert t == wt and part.dtype == torch.int32
         np.testing.assert_array_equal(part.numpy(), w)
         deg = te._nbr_deg[w]
         lo = ([0] + widths)[widths.index(t)]
@@ -249,36 +302,36 @@ def test_receiver_parts_built_on_the_device_equal_the_host_parts(hub_engine, kin
     # the rows that ran this round: the changed ones among others
     ran = np.union1d(changed, rng.choice(n, n // 3, replace=False)).astype(np.int32)
     ran_parts = te._receiver_parts(_vertex_mask(te, ran))
-    _assert_parts(te, ran_parts, list(te._bucket_parts(ran)))
+    _assert_parts(te, ran_parts, _host_parts(te, ran))
     ran = [(t, part, torch.from_numpy(np.isin(part.numpy(), changed))) for t, part in ran_parts]
     if kind == "repair":
         rows = np.arange(n) if case == "every" else rng.choice(n, 3 * n // 5, replace=False)
         rows = np.sort(rows).astype(np.int32)
         got = te._next_receivers(ran, narrow=_vertex_mask(te, rows))
-        want = EngineCore._repair_receivers(te, changed, rows)
+        want = repair_receivers(te.bn.lo_ids, te.bn.hi_ids, changed, rows)
     else:
         touched = te._vertex_mask()
         got = te._next_receivers(ran, touched=touched)
-        want = EngineCore._expand_receivers(te, changed)
+        want = _expand(te, changed)
         # the changed rows that ran: a degree-0 row is in no part
         np.testing.assert_array_equal(np.flatnonzero(touched[:n].numpy()),
                                       np.unique(changed[te._nbr_deg[changed] > 0]))
-    _assert_parts(te, got, list(te._bucket_parts(want)))
+    _assert_parts(te, got, _host_parts(te, want))
     if case in ("empty", "degree-0"):
         assert got == []
 
 
 def _replay(te, parts, first, expand):
     """Walk the host round loop over recorded device parts: each round's
-    parts must be ``_bucket_parts`` of the host receiver set (``first``,
+    parts must be ``bucket_parts`` of the host receiver set (``first``,
     then ``expand(changed rows)``); returns the rounds and the summed sizes
     of the sets ``expand`` built."""
     active, rounds, built = first, 0, 0
     while active.size:
-        want = list(te._bucket_parts(active))
+        want = _host_parts(te, active)
         got, parts = parts[:len(want)], parts[len(want):]
         assert len(got) == len(want)
-        for (part, _), w in zip(got, want):
+        for (part, _), (_, w) in zip(got, want):
             np.testing.assert_array_equal(part, w)
         rounds += 1
         changed = np.concatenate([p[m] for p, m in got] + [np.empty(0, np.int32)])
@@ -319,10 +372,10 @@ def test_receiver_rows_counts_the_host_receiver_sets(monkeypatch):
     res = te.flush_updates()
     purged = seen["purged"]
     r_rounds, r_built = _replay(te, seen["repair"], purged,
-                                lambda c: EngineCore._repair_receivers(te, c, purged))
-    first = EngineCore._expand_receivers(te, np.unique(seen["src"]))
+                                lambda c: repair_receivers(te.bn.lo_ids, te.bn.hi_ids, c, purged))
+    first = _expand(te, np.unique(seen["src"]))
     f_rounds, f_built = _replay(te, seen["frontier"], first,
-                                lambda c: EngineCore._expand_receivers(te, c))
+                                lambda c: _expand(te, c))
     assert (r_rounds, f_rounds) == (res["repair_rounds"], res["frontier_rounds"])
     assert r_rounds > 1 and f_rounds > 1
     assert trace.last(FLUSH)["receiver_rows"] == r_built + first.size + f_built > 0

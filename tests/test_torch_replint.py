@@ -79,7 +79,8 @@ def test_port_rail_reaches_the_flush_and_query_paths():
     reached = {k.split(":")[1] for k in graph.reachable}
     for name in ("_moe_route", "_moe_dispatch",
                  "QueryEngine._gather_batch", "ShardedQueryEngine._gather_batch",
-                 "EngineCore._insert_frontier", "EngineCore._frontier_round",
+                 "QueryEngine._insert_frontier", "QueryEngine._repair",
+                 "ShardedQueryEngine._insert_frontier", "ShardedQueryEngine._frontier_round",
                  "QueryEngine._frontier_candidates", "ShardedQueryEngine._fhalo",
                  "QueryEngine._repair_part", "ShardedQueryEngine._repair_part_host",
                  "ShardedQueryEngine._prepare_publish", "rows_purge_merge", "topk_merge"):

@@ -29,10 +29,9 @@ from repro.graph.generators import pick_objects, random_connected_graph, road_ne
 from repro.kernels import ops as jops
 from repro_torch import knn
 from repro_torch.core.bngraph import bngraph_from_arrays
-from repro_torch.core.engine import EngineCore
 from repro_torch.core.errors import EngineConfigError, QueryError
 from repro_torch.core.partition import PartitionPlan, propose_starts
-from repro_torch.core.sharded import ShardedQueryEngine, shard_tables
+from repro_torch.core.sharded import ShardedQueryEngine, expand_receivers, shard_tables
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 
@@ -230,7 +229,7 @@ def test_device_expansion_matches_host_oracle(shards):
         edges = np.concatenate([starts, starts - 1, [g.n - 1], rng.integers(0, g.n, 24)])
         active = np.unique(edges[(edges >= 0) & (edges < g.n)]).astype(np.int32)
         np.testing.assert_array_equal(te._expand_receivers_device(active),
-                                      EngineCore._expand_receivers(te, active))
+                                      expand_receivers(te._nbr_indptr, te._nbr_indices, active))
 
 
 def test_halo_overflow_falls_back_to_routed_path():
