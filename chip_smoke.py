@@ -580,20 +580,22 @@ def check_sweep_merge(cfg, dev, results) -> None:
     check_sweep_levels(cfg, dev, results, ex_ids, ex_d, rng)
 
 
-def synthetic_levels(rng, n: int, n_levels: int):
+def synthetic_levels(rng, n: int, n_levels: int, shape=None):
     """A sweep of ``n_levels`` levels over vertices of 0..n-1: sizes
     log-uniform over 1-20,000 rows, widths from 1 to 200 neighbours (buckets
-    4 to 256, the widest walked in groups), neighbours drawn from the level
-    before (half) and from any earlier level, 20% of the slots empty, integer
-    weights 1-15."""
-    sizes = np.exp(rng.uniform(0, np.log(20000), size=n_levels)).astype(np.int64) + 1
-    perm = rng.permutation(n)[: int(sizes.sum())].astype(np.int32)
+    4 to 256, the widest walked in groups), or the (rows, width) levels of
+    ``shape``; neighbours drawn from the level before (half) and from any
+    earlier level, 20% of the slots empty, integer weights 1-15."""
+    if shape is None:
+        sizes = np.exp(rng.uniform(0, np.log(20000), size=n_levels)).astype(np.int64) + 1
+        shape = [(int(size), None) for size in sizes]
+    perm = rng.permutation(n)[: sum(size for size, _ in shape)].astype(np.int32)
     widths = (1, 2, 3, 4, 6, 8, 12, 16, 20, 24, 32, 37, 48, 64, 100, 200)
     levels, at, prev, done = [], 0, None, []
-    for size in sizes:
+    for size, width in shape:
         verts = perm[at : at + size]
         at += size
-        width = int(rng.choice(widths))
+        width = int(rng.choice(widths)) if width is None else width
         nbr = np.full((size, width), -1, np.int32)
         if prev is not None:
             pool = np.concatenate(done)
@@ -655,7 +657,85 @@ def check_sweep_levels(cfg, dev, results, ex_ids, ex_d, rng) -> None:
         "plain_ms": plain_ms,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
         "sass": kernel_sass("sweep_merge", "sweep_levels_kernel"),
+        "k100": check_sweep_tree(dev, rng),
     }
+
+
+# K2's levels at k = 100 as a road network's BN-Graph gives them: many narrow
+# rows below, and at the top levels of a few rows 162-613 neighbours wide (the
+# grid-384 sweeps' widest), which the kernel spreads over the grid in up to
+# 171 parts a row and merges back by a tree of fan-in 7; (1,100, 64) stays a
+# warp a row on any grid of at most 2,199 warps
+TREE_LEVELS = [(20_000, 8), (8_000, 16), (3_000, 37), (3, 613), (1, 1_024), (100, 256),
+               (178, 162), (1, 16), (1_100, 64), (500, 100), (2, 613)]
+
+
+def tree_rows(plan, k: int, e: int) -> int:
+    """The rows of ``plan`` that K2's levels kernel merges by a tree of two or
+    more levels: a level of R rows of width t, wider than one group of
+    ``group_cap(k, E)`` neighbours, with 2R at most the grid's W warps, is
+    spread in P = min(W // R, max(F, groups)) parts a row, cut to
+    ceil(t / ceil(t / P)); F = 768 // k lists merge at once."""
+    from repro_torch.kernels import ops
+
+    geometry = ops._fn("sweep_merge", "knn_sweep_geometry")
+    warps = ops._fn("sweep_merge", "knn_sweep_levels_grid")(k) * geometry(0)
+    cap = ops._fn("sweep_merge", "knn_sweep_group_cap")(k, e)
+    fan = geometry(1) // k
+    deep = 0
+    for b, first, rows in plan.levels.tolist():
+        t = plan.buckets[b].t_pad
+        groups = -(-t // max(1, min(t, cap)))
+        if fan > 1 and groups > 1 and 2 * rows <= warps:
+            parts = min(warps // rows, max(fan, groups))
+            if -(-t // -(-t // parts)) > fan:
+                deep += int((plan.buckets[b].verts[first : first + rows] != plan.n).sum())
+    return deep
+
+
+def check_sweep_tree(dev, rng) -> dict:
+    """K2's one-launch sweep at k = E = 100 on ``TREE_LEVELS`` (n = 2^20)
+    against the plain version walked level by level: the plan that spreads a
+    few-row level's wide rows in parts wider than a group and merges them by
+    a tree of two and three levels."""
+    from repro_torch.core import construct
+    from repro_torch.kernels import ops
+
+    n, k = 1 << 20, 100
+    gen = torch.Generator(device=dev).manual_seed(13)
+    ex_ids, ex_d = random_tables(n, k, gen, dev, 4096)
+    levels = synthetic_levels(rng, n, len(TREE_LEVELS), shape=TREE_LEVELS)
+    plan = construct.pack_sweep(n, "up", levels, device=dev)
+    rows = sum(v.size for v, _, _ in levels)
+    slots = sum(int((nb >= 0).sum()) for _, nb, _ in levels)
+    deep = tree_rows(plan, k, k)
+    require(deep > 0, f"no row of the k = {k} sweep is merged by a tree")
+    del levels
+    distinct = int(torch.unique(torch.cat([b.nbr[b.nbr >= 0] for b in plan.buckets])).numel())
+    got = construct.run_sweep(plan, ex_ids, ex_d, k)
+    want = construct.run_sweep(plan, ex_ids, ex_d, k, use_kernel=False)
+    torch.cuda.synchronize()
+    differ = int(((got[0] != want[0]) | (got[1] != want[1])).any(dim=1).sum())
+    require(differ == 0, f"sweep_merge_levels at k = {k} differs from the plain version walked "
+                         f"level by level in {differ} of {rows} rows")
+    err = max_abs_err(got[1], want[1])
+    del want
+    buckets = [(b.nbr, b.w, b.verts) for b in plan.buckets]
+    gathered, kept = ops.sweep_merge_levels(buckets, plan.levels, ex_ids, ex_d, *got, k).tolist()
+    require(gathered == k * (slots + rows) and 0 < kept <= gathered,
+            f"sweep_merge_levels tallied {kept} kept of {gathered} gathered candidates, "
+            f"for {slots} neighbour slots and {rows} rows at k = E = {k}")
+    ms = cuda_ms(lambda: ops.sweep_merge_levels(buckets, plan.levels, ex_ids, ex_d, *got, k),
+                 reps=3)
+    plain_ms = cuda_ms(lambda: ops.sweep_merge_levels(buckets, plan.levels, ex_ids, ex_d, *got,
+                                                      k, use_kernel=False), reps=1)
+    # bytes and operations as the k = 20 pass counts them
+    nbytes = slots * 8 + rows * 4 + 2 * rows * k * 8 + distinct * k * 8
+    bms, by = bound(nbytes, 2.0 * (slots * k + rows * k))
+    return {"shape": {"n": n, "levels": TREE_LEVELS, "rows": rows, "neighbour_slots": slots,
+                      "buckets": list(plan.bucket_signature()), "k": k, "E": k},
+            "tree_rows": deep, "kept_share": kept / gathered, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
 
 
 def frontier_case(dev, seed: int, n: int, r: int, t: int, b: int, idle: bool = False):

@@ -58,14 +58,19 @@
 //   level's time is its slowest row's, and the top of a road network's
 //   hierarchy is hundreds of levels of one to a few rows with 100-600
 //   neighbours each, which one warp (or one SM) would walk selection after
-//   selection. So in a level of few rows wider than one group (`group_cap`:
-//   the neighbours whose candidates fill the registers with the tail), whose
-//   parts of at most one group each fit the grid, the (row, part) pairs are
-//   spread over the grid's warps, up to 38 parts a row, each bounded by its
-//   own lists (at k = 100 only rows of at most 42 neighbours): each warp
-//   writes its part's dedup top-k to a scratch row, fences, and counts it on
-//   the row's counter; the warp that counts the last part merges the row's
-//   parts (still no block barrier). Levels of many rows keep a warp a row.
+//   selection. So a level of few rows wider than one group (`group_cap`:
+//   the neighbours whose candidates fill the registers with the tail) is
+//   spread over the grid's warps, one (row, part) pair a warp, each part
+//   bounded by its own lists and walked through the warp's buffer, however
+//   wide. A row takes as many parts as the grid has warps for it, up to
+//   max(F, its groups), where F = kMaxCands / k is the fan-in of one merge
+//   (38 lists at k = 20, 7 at k = 100). Its parts' dedup top-k lists are
+//   merged back by a tree of fan-in F: each warp writes its list to the
+//   row's scratch, fences, and counts it on its parent node's counter; the
+//   warp that completes a node merges its children's lists, writes the
+//   node's list and counts it in turn, and the warp that completes the root
+//   stores the row (no block barrier, nothing waits). A row of at most F
+//   parts takes one merge. Levels of many rows keep a warp a row.
 //
 // L1 is not coherent across SMs, and a grid barrier does not invalidate it:
 // a row is 80 bytes at k = 20, so one 128-byte line spans two rows written at
@@ -295,6 +300,26 @@ sweep_merge_kernel(const int* __restrict__ nbr, const int* __restrict__ verts,
   store_row(walk.sel, k, out_ids, out_d, i);
 }
 
+// Lists of k keys, and counters, that the levels kernel's scratch holds for
+// each warp of its grid. A level spread in p parts a row, R rows on at most
+// W warps (R p <= W, p >= 2), keeps each row's p leaves and the nodes of its
+// tree of fan-in F >= 2: ceil(p / F^l) at level l, at most (p - 1) / (F - 1)
+// + depth <= 2p - 2 above the leaves, so R (3p - 2) < 3W of each.
+constexpr int kScratchPerWarp = 3;
+
+// The dedup top-k of the c keys at `all` (lists other warps wrote to the
+// sweep's scratch) on the fewest registers that hold them, into `sel`.
+__device__ __noinline__ void merge_lists(const knn::key_t* all, int c, int k, knn::key_t* sel) {
+  if (c <= 4 * 32)
+    merge_parts<4>(all, c, k, sel);
+  else if (c <= 8 * 32)
+    merge_parts<8>(all, c, k, sel);
+  else if (c <= 16 * 32)
+    merge_parts<16>(all, c, k, sel);
+  else
+    merge_parts<kMaxRegs>(all, c, k, sel);
+}
+
 // Grid-wide barrier for a cooperative launch. bar[0] counts arrivals,
 // bar[1] is the generation the waiting blocks watch. The fence before the
 // arrival publishes this block's stores (cumulative over the block through
@@ -335,6 +360,7 @@ sweep_levels_kernel(const int* __restrict__ levels, int n_levels,
   const int first = blockIdx.x * kWarps + warp;
   const int stride = gridDim.x * kWarps;
   const int cap = group_cap(k, e);
+  const int fan = kMaxCands / k;  // lists one merge holds: 38 at k = 20, 7 at k = 100
   unsigned gathered = 0, kept = 0;
   for (int lv = 0; lv < n_levels; ++lv) {
     const int* entry = levels + 3 * lv;
@@ -344,17 +370,21 @@ sweep_levels_kernel(const int* __restrict__ levels, int n_levels,
     const int* verts = reinterpret_cast<const int*>(bk[2]);
     const int t = static_cast<int>(bk[3]);
     const int t_group = max(1, min(t, cap));
-    const int end = entry[1] + entry[2];
+    const int rows = entry[2];
+    const int end = entry[1] + rows;
     const int groups = (t + t_group - 1) / t_group;
     // a level of few rows wider than one group: its rows' neighbour slots are
-    // spread over the grid in parts, one (row, part) item a warp; the warp
-    // that finishes a row's last part merges the row's parts
-    const int spread = groups > 1 && 2 * entry[2] <= stride
-                           ? min(kMaxCands / k, stride / max(1, entry[2])) : 1;
-    const int t_part = (t + spread - 1) / spread;
-    if (spread > 1 && t_part <= t_group) {
+    // spread over the grid in parts, one (row, part) item a warp, as many
+    // parts a row as the grid has warps for, up to max(F, groups); the
+    // parts' lists are merged back by a tree of fan-in F
+    const int spread = fan > 1 && groups > 1 && 2 * rows <= stride
+                           ? min(stride / max(1, rows), max(fan, groups)) : 1;
+    if (spread > 1) {
+      const int t_part = (t + spread - 1) / spread;
       const int parts = (t + t_part - 1) / t_part;
-      const int items = entry[2] * parts;
+      int nodes = 1;  // a row's tree: the leaves, then each level above, the root last
+      for (int m = parts; m > 1; m = (m + fan - 1) / fan) nodes += m;
+      const int items = rows * parts;
       for (int q = first; q < items; q += stride) {
         const int row = q / parts, g = q - (q / parts) * parts;
         const int i = entry[1] + row;
@@ -367,27 +397,32 @@ sweep_levels_kernel(const int* __restrict__ levels, int n_levels,
                    static_cast<size_t>(v), ids, d, k, walk);
         gathered += walk.gathered;
         kept += walk.kept;
-        knn::key_t* mine = scratch + static_cast<size_t>(q) * k;
-        for (int r = lane; r < k; r += 32) mine[r] = sel[r];
-        __threadfence();  // this part is visible before it is counted
-        __syncwarp();
-        unsigned done = 0;
-        if (lane == 0) done = atomicAdd(counts + row, 1u);
-        done = __shfl_sync(0xffffffffu, done, 0);
-        if (done + 1 == static_cast<unsigned>(parts)) {  // the row's last part: merge
+        // climb the row's tree from leaf g: write the node's list and count it
+        // on its parent; the warp that completes the parent merges its
+        // children's lists and climbs on, and the one that completes the
+        // root stores the row
+        knn::key_t* lists = scratch + static_cast<size_t>(row) * nodes * k;
+        unsigned* count = counts + static_cast<size_t>(row) * nodes;
+        for (int at = 0, m = parts, j = g;;) {  // the level's first node, its nodes, this node
+          knn::key_t* mine = lists + static_cast<size_t>(at + j) * k;
+          for (int r = lane; r < k; r += 32) mine[r] = sel[r];
+          __threadfence();  // this list is visible before it is counted
+          __syncwarp();
+          const int up = at + m, parent = j / fan, kids = min(fan, m - parent * fan);
+          unsigned done = 0;
+          if (lane == 0) done = atomicAdd(count + up + parent, 1u);
+          done = __shfl_sync(kFull, done, 0);
+          if (done + 1 != static_cast<unsigned>(kids)) break;  // a sibling's warp merges
           __threadfence();
-          const knn::key_t* all = scratch + static_cast<size_t>(row) * parts * k;
-          const int c = parts * k;
-          if (c <= 4 * 32)
-            merge_parts<4>(all, c, k, sel);
-          else if (c <= 8 * 32)
-            merge_parts<8>(all, c, k, sel);
-          else if (c <= 16 * 32)
-            merge_parts<16>(all, c, k, sel);
-          else
-            merge_parts<kMaxRegs>(all, c, k, sel);
-          store_row(sel, k, ids, d, static_cast<size_t>(v));
-          if (lane == 0) counts[row] = 0;  // for a later level, after the barrier
+          merge_lists(lists + static_cast<size_t>(at + parent * fan) * k, kids * k, k, sel);
+          if (lane == 0) count[up + parent] = 0;  // for a later level, after the barrier
+          if (m <= fan) {  // the root
+            store_row(sel, k, ids, d, static_cast<size_t>(v));
+            break;
+          }
+          at = up;
+          m = (m + fan - 1) / fan;
+          j = parent;
         }
       }
     } else {  // a warp a row
@@ -422,10 +457,12 @@ extern "C" int knn_sweep_group_cap(int k, int e) {
   return cap > 0 ? cap : 0;
 }
 
-// The kernels' geometry: which = 0 -> warps a block (the sweep's scratch
-// holds k keys and one counter for each warp of its grid), 1 -> candidates
-// a warp holds in registers.
-extern "C" int knn_sweep_geometry(int which) { return which == 0 ? kWarps : kMaxCands; }
+// The kernels' geometry: which = 0 -> warps a block, 1 -> candidates a
+// warp holds in registers, 2 -> lists of k keys and counters that the
+// levels kernel's scratch holds for each warp of its grid.
+extern "C" int knn_sweep_geometry(int which) {
+  return which == 0 ? kWarps : which == 1 ? kMaxCands : kScratchPerWarp;
+}
 
 // nbr, w: (s, t); verts: (s,); ex_*: (n+1, e); rd_*: (n+1, k) read tables;
 // out_*: an (s, k) tile. 1 <= t_group <= knn_sweep_group_cap(k, e): a row's
@@ -466,11 +503,11 @@ extern "C" int knn_sweep_levels_grid(int k) {
 
 // levels: (n_levels, 3) int32, buckets: (n_buckets, 4) int64, both on the
 // device; ex_*: (n+1, e), ids/d: (n+1, k) live tables, written in place;
-// grid: knn_sweep_levels_grid(k); scratch: grid * kWarps * k keys; counts:
-// grid * kWarps zeroed words; bar: two zeroed words; tally: two zeroed
-// 64-bit words, which gain the candidates gathered and kept. Returns the CUDA
-// error code (0 = launched); a cooperative launch the runtime refuses is
-// returned as such.
+// grid: knn_sweep_levels_grid(k); with W = grid * kWarps warps, scratch:
+// kScratchPerWarp * W * k keys; counts: kScratchPerWarp * W zeroed words;
+// bar: two zeroed words; tally: two zeroed 64-bit words, which gain the
+// candidates gathered and kept. Returns the CUDA error code (0 = launched); a cooperative launch
+// the runtime refuses is returned as such.
 extern "C" int knn_sweep_levels(const int* levels, int n_levels, const long long* buckets,
                                 const int* ex_ids, const float* ex_d, int* ids, float* d, int k,
                                 int e, int n, int grid, unsigned long long* scratch,

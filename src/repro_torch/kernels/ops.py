@@ -335,8 +335,11 @@ def sweep_merge_levels(
     CUDA kernel: ``knn_sweep_levels`` in ``csrc/sweep_merge.cu``, ONE
     cooperative launch of as many blocks as the card holds at once, which walk
     ``levels`` with a grid barrier after each: a warp a row, or, for a level
-    of few rows wider than one group of neighbours, a warp a (row, group)
-    part, the last part's warp merging the row. The kernel reads the
+    of few rows wider than one group of neighbours, a warp a (row, part),
+    up to max(F, the row's groups) parts a row as the grid allows, merged
+    back by a tree of fan-in F = 768 // k whose last arrivers merge. The
+    scratch holds the widest level's leaves and tree nodes, 3 lists of k
+    keys and 3 counters a warp of the grid. The kernel reads the
     buckets' addresses and widths from a (B, 4) table built here from
     ``buckets``. A launch the runtime refuses raises. The plain path walks
     the same ``levels`` table with ``ref.sweep_merge_ref``, one level at a
@@ -372,16 +375,17 @@ def sweep_merge_levels(
     table = table.to(dev, non_blocking=True)
     with torch.cuda.device(dev):
         grid = _fn("sweep_merge", "knn_sweep_levels_grid")(k)
-        warps = grid * _fn("sweep_merge", "knn_sweep_geometry")(0)
-        # a part (k keys) and a counter for each warp of the grid, the barrier's
-        # two words, then the tally's two 64-bit words (warps is even: aligned)
-        scratch = torch.empty(warps * k, dtype=torch.int64, device=dev)
-        counts = torch.zeros(warps + 6, dtype=torch.int32, device=dev)
-        tally = counts[warps + 2 :].view(torch.int64)
+        geometry = _fn("sweep_merge", "knn_sweep_geometry")
+        lists = grid * geometry(0) * geometry(2)
+        # the merge trees' lists (k keys each) and counters, the barrier's two
+        # words, then the tally's two 64-bit words (lists is even: aligned)
+        scratch = torch.empty(lists * k, dtype=torch.int64, device=dev)
+        counts = torch.zeros(lists + 6, dtype=torch.int32, device=dev)
+        tally = counts[lists + 2 :].view(torch.int64)
         code = _fn("sweep_merge", "knn_sweep_levels")(
             levels.data_ptr(), levels.shape[0], table.data_ptr(), ex_ids.data_ptr(),
             ex_d.data_ptr(), vk_ids.data_ptr(), vk_d.data_ptr(), k, e, n1 - 1, grid,
-            scratch.data_ptr(), counts.data_ptr(), counts[warps:].data_ptr(), tally.data_ptr(),
+            scratch.data_ptr(), counts.data_ptr(), counts[lists:].data_ptr(), tally.data_ptr(),
             _stream(dev),
         )
     if levels.shape[0]:

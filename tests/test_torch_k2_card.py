@@ -1,10 +1,11 @@
 """K2 (``csrc/sweep_merge.cu``) on the card against its plain version, where
 each row's bound drops candidates before the selection rounds: the one-launch
 sweep at k = 20, 40 and 100 over levels of many narrow rows and of a few rows
-256 and 1,024 neighbours wide, a sweep whose every candidate ties at its
-row's bound, and the repair rounds' tile form. The lists the kernel reads are
-rows as it writes them (distinct ids, distances ascending, dead entries
-last), which the bound rests on.
+256 and 1,024 neighbours wide, levels that force each plan of a few-row
+level (a warp a row, one merge, a merge tree of depth 2 and 3), a sweep
+whose every candidate ties at its row's bound, and the repair rounds' tile
+form. The lists the kernel reads are rows as it writes them (distinct ids,
+distances ascending, dead entries last), which the bound rests on.
 
 These tests need a CUDA card (a CUDA kernel has no interpret mode) and skip
 without one; on the card: ``python3 -m pytest -q -m card tests/``.
@@ -22,6 +23,11 @@ N = 60_000
 # (rows, neighbour width) a level, in order: many narrow rows, few wide ones
 SHAPE = ([(20_000, 0), (8_000, 8), (2_000, 16), (3, 16), (2, 256), (1, 1024), (4, 1024),
           (500, 40), (1, 256), (2, 1024), (3_000, 12)])
+# levels that force each plan at k = 100: (3, 1024) in 171 parts a row (a
+# tree of depth 3), (100, 256) in 10 or 20 parts (depth 2) on a grid of
+# 1,056 or 2,112 warps, (178, 256) in 5 or 11, (1, 16) in 6 (one merge),
+# (1,100, 64) a warp a row (2 * 1,100 > 2,112)
+TREE_SHAPE = [(6_000, 0), (2_000, 8), (3, 1024), (100, 256), (178, 256), (1, 16), (1_100, 64)]
 
 
 @pytest.fixture
@@ -75,6 +81,28 @@ def _sweep_both(plan, ex_ids, ex_d, k, dev):
     return got, want, tally.tolist()
 
 
+def _deep_rows(plan, k, e):
+    """The rows the kernel merges by a tree of two or more levels, by its plan
+    (``sweep_levels_kernel``): a level of R rows of width t, wider than one
+    group of ``group_cap(k, E)`` neighbours, with 2R at most the grid's W
+    warps, is spread in P = min(W // R, max(F, groups)) parts a row, cut to
+    ceil(t / ceil(t / P)); its tree has fan-in F = 768 // k."""
+    geometry = ops._fn("sweep_merge", "knn_sweep_geometry")
+    warps = ops._fn("sweep_merge", "knn_sweep_levels_grid")(k) * geometry(0)
+    cap = ops._fn("sweep_merge", "knn_sweep_group_cap")(k, e)
+    fan = geometry(1) // k
+    deep = 0
+    for b, first, rows in plan.levels.tolist():
+        t = plan.buckets[b].t_pad
+        groups = -(-t // max(1, min(t, cap)))
+        if fan < 2 or groups < 2 or 2 * rows > warps:
+            continue
+        spread = min(warps // max(1, rows), max(fan, groups))
+        if -(-t // -(-t // spread)) > fan:
+            deep += int((plan.buckets[b].verts[first : first + rows] != N).sum())
+    return deep
+
+
 def _slots_and_rows(levels):
     return (sum(int((nbr >= 0).sum()) for _, nbr, _ in levels),
             sum(len(vs) for vs, _, _ in levels))
@@ -111,6 +139,27 @@ def test_sweep_levels_where_every_candidate_ties_at_the_bound(cuda, k):
     # every candidate is live and at the bound; past a row's first selection
     # the running bound, its k-th key, drops the larger ids
     assert gathered == k * slots + k * rows and 0 < kept <= gathered
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["spread", "ties"])
+@pytest.mark.parametrize("k", [20, 40, 100])
+def test_sweep_levels_merge_wide_rows_by_a_tree(cuda, k, ties):
+    # with ties: every list at distance 5 and every weight 0, so each merge
+    # of the tree keeps the k smallest ids it sees
+    rng = np.random.default_rng(300 + k + ties)
+    levels = _levels(rng, TREE_SHAPE, weights=1 if ties else 10)
+    plan = construct.pack_sweep(N, "up", levels, device=cuda)
+    ex_ids, ex_d = _extras(rng, k, cuda, dist=5.0 if ties else None)
+    got, want, (gathered, kept) = _sweep_both(plan, ex_ids, ex_d, k, cuda)
+    differ = int(((got[0] != want[0]) | (got[1] != want[1])).any(dim=1).sum())
+    assert differ == 0, f"{differ} rows differ from the plain version at k = {k}"
+    slots, rows = _slots_and_rows(levels)
+    assert gathered == k * slots + k * rows and 0 < kept <= gathered
+    # the shapes force the plans they are for: k = 20, no row takes more
+    # parts than one merge holds; k = 100, the 1,024-wide rows take a tree on
+    # any grid of at least 24 warps
+    deep = _deep_rows(plan, k, k)
+    assert deep == 0 if k == 20 else deep > 0
 
 
 @pytest.mark.parametrize("k", [20, 40, 100])

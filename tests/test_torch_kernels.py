@@ -383,6 +383,65 @@ def test_sweep_selection_rounding_tie_goes_to_the_smaller_id():
     np.testing.assert_array_equal(got_d.numpy()[0, :2], [1.0, 1.0])
 
 
+
+def _merge_by_tree(case, k, parts, fan):
+    """A spread row of K2's one-launch sweep (``sweep_levels_kernel``), in
+    plain torch: the neighbour slots cut into ``parts`` parts of ceil(t /
+    parts) slots, each part's dedup top-k (``kround_merge``; part 0's with
+    the row's extras), then the parts' lists merged in groups of ``fan``,
+    level by level, until one is left, as the last arriver at each node of
+    the kernel's tree merges them. Returns the rows, the tree's depth and
+    the parts' lists."""
+    nbr, verts, w, ex_ids, ex_d, vk_ids, vk_d = _t(*case)
+    e, t = ex_ids.shape[1], nbr.shape[1]
+    t_part = -(-t // parts)
+    assert -(-t // t_part) == parts
+    lists = []
+    for g in range(parts):
+        j = slice(g * t_part, (g + 1) * t_part)
+        c_ids, c_d = ref.sweep_candidates(nbr[:, j], verts, w[:, j], ex_ids, ex_d, vk_ids, vk_d)
+        if g:  # the extras are part 0's alone
+            c_ids, c_d = c_ids[:, :-e], c_d[:, :-e]
+        lists.append(ref.kround_merge(c_ids, c_d, k))
+    leaves, depth = lists, 0
+    while len(lists) > 1:
+        lists = [ref.kround_merge(torch.cat([x[0] for x in lists[a : a + fan]], 1),
+                                  torch.cat([x[1] for x in lists[a : a + fan]], 1), k)
+                 for a in range(0, len(lists), fan)]
+        depth += 1
+    return lists[0], depth, leaves
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("parts,fan,t,depth", [(3, 7, 7, 1), (8, 2, 16, 3), (43, 7, 86, 2),
+                                               (171, 7, 171, 3), (38, 38, 76, 1)])
+def test_sweep_merge_tree_matches_jax_kround_merge(seed, parts, fan, t, depth):
+    # the tie case over t slots, its last third empty as a bucket's padding
+    # (so the last parts are all dead), and row 1 meeting row 0's rounding
+    # tie (ids 9, 3 both at 1.0) in a later part than its first
+    case = _tie_case(seed, t=t)
+    nbr, w = case[0], case[2]
+    live = t - t // 3
+    nbr[:, live:] = -1
+    nbr[1, live // 2] = 1
+    w[1, live // 2] = 1.0
+    w[nbr < 0] = np.inf
+    k = case[5].shape[1]
+    got, levels, leaves = _merge_by_tree(case, k, parts, fan)
+    assert levels == depth
+    want = tuple(np.asarray(x)[case[1]] for x in jref.sweep_merge_ref(*_j(*case), k))
+    _eq(got, want)
+    c_ids, c_d = ref.sweep_candidates(*_t(*case))
+    _eq(got, jax_kround_merge(jnp.asarray(c_ids.numpy()), jnp.asarray(c_d.numpy()), k))
+    # row 0's rounding tie goes to the smaller id through every merge level
+    np.testing.assert_array_equal(got[0].numpy()[0, :2], [3, 9])
+    np.testing.assert_array_equal(got[1].numpy()[0, :2], [1.0, 1.0])
+    # the tree merged parts short of k live entries, and all-dead parts
+    live_entries = torch.stack([(ids >= 0).sum(1) for ids, _ in leaves])
+    assert bool(((live_entries > 0) & (live_entries < k)).any())
+    assert int(live_entries[-1].sum()) == 0
+
+
 # K2's pruned walk (csrc/sweep_merge.cu), mirrored in numpy on packed keys:
 # a bound from the row's full source lists before any round, each candidate
 # above it dropped as it is gathered, the survivors selected a buffer at a
